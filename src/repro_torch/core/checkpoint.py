@@ -1,0 +1,196 @@
+"""Restore the JAX package's training checkpoints into the port.
+
+The reference (``repro.core.checkpoint``) saves ``{"params", "opt_state"}``
+as ONE flat npz leaf list in ``jax.tree_util.tree_flatten`` order, beside
+the ``experiment.json`` its trainer writes. This module reads that layout
+without jax by rebuilding the flatten order itself:
+
+  * dict keys are sorted (``opt_state`` before ``params``; ``W`` before
+    ``a_dst`` before ``a_src`` before ``b``);
+  * NamedTuple fields and lists keep their order (``AdamState(step, mu,
+    nu)``, ``SGDState(step, momentum | None)``);
+  * ``None`` holds no leaf.
+
+``params_from_numpy`` is the carry-across function: it turns a reference
+parameter tree (numpy or jax array leaves, client-stacked) into the port's
+tree of torch tensors.
+"""
+from __future__ import annotations
+
+import json
+import zipfile
+from pathlib import Path
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+# param-shaped copies each optimizer's state holds after its step counter
+# (repro.optim.optimizers: SGDState(step, None) for sgd, SGDState(step,
+# momentum) for momentum, AdamState(step, mu, nu) for adam and adamw)
+OPT_STATE_COPIES = {"sgd": 0, "momentum": 1, "adam": 2, "adamw": 2}
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in ``jax.tree_util`` flatten order (sorted dict keys)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    """``fn`` over every leaf, keeping the structure of ``tree``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t) for t in tree)
+    return fn(tree)
+
+
+def _unflatten(like, leaves):
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+    return build(like)
+
+
+def _bf16_from_bits(bits: np.ndarray) -> torch.Tensor:
+    """bfloat16 tensor from its 16-bit patterns (numpy has no bf16)."""
+    return torch.from_numpy(bits.view(np.int16).copy()).view(torch.bfloat16)
+
+
+def _to_tensor(arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return _bf16_from_bits(arr.view(np.uint16))
+    return torch.from_numpy(np.array(arr, copy=True, order="C"))
+
+
+def params_from_numpy(tree, device=None):
+    """Reference parameter tree ``{"inp", "layers": [...], "cls"}`` (leaves
+    numpy arrays, or anything ``np.asarray`` takes) -> the same tree of
+    contiguous torch tensors on ``device`` (default: CUDA)."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _to_tensor(a).to(dev), tree)
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    p = Path(ckpt_dir) / "LATEST"
+    if not p.exists():
+        return None
+    return int(p.read_text().strip())
+
+
+class InferenceRestore(NamedTuple):
+    """``load_for_inference`` result: exactly what a serving process needs."""
+    params: Any            # the trained per-client parameter stack
+    config: Any            # ExperimentConfig that wrote the checkpoint
+    step: int              # training round the params were saved at
+    data: Any              # VFLDataset the config binds to
+
+
+def load_for_inference(ckpt_dir: str, step: Optional[int] = None,
+                       data=None, device=None) -> InferenceRestore:
+    """Restore PARAMS ONLY from a reference training checkpoint.
+
+    Rebuilds the model from ``experiment.json``, marks the trailing leaves
+    of the flat list as the params (``params`` sorts after ``opt_state``)
+    and reads only those members of the npz. Errors are loud, as in the
+    reference: no ``experiment.json`` or no such step -> FileNotFoundError;
+    corrupt npz, leaf-count, shape or dtype mismatch -> RuntimeError; an
+    optimizer whose state layout the port does not know -> ValueError.
+    """
+    from ..api.config import ExperimentConfig
+    from . import glasu
+
+    dev = resolve_device(device)
+    path = Path(ckpt_dir)
+    meta_file = path / "experiment.json"
+    if not meta_file.exists():
+        raise FileNotFoundError(
+            f"no experiment.json in {ckpt_dir}: cannot reconstruct the "
+            "model structure this checkpoint's leaves belong to")
+    cfg = ExperimentConfig.from_dict(json.loads(meta_file.read_text()))
+    if cfg.optimizer not in OPT_STATE_COPIES:
+        raise ValueError(
+            f"checkpoint optimizer {cfg.optimizer!r}: the port restores "
+            f"the state layouts of {sorted(OPT_STATE_COPIES)} only (not "
+            "ported yet)")
+
+    step = step if step is not None else latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(
+            f"no LATEST pointer in {ckpt_dir} and no explicit step given; "
+            f"found: {sorted(f.name for f in path.glob('ckpt_*.npz'))}")
+    fn = path / f"ckpt_{step:08d}.npz"
+    if not fn.exists():
+        raise FileNotFoundError(
+            f"no checkpoint for step {step} in {ckpt_dir}; found: "
+            f"{sorted(f.name for f in path.glob('ckpt_*.npz'))}")
+
+    if data is None:
+        from ..graph.synth import make_vfl_dataset
+        data = make_vfl_dataset(cfg.dataset, n_clients=cfg.n_clients,
+                                seed=cfg.seed)
+        if cfg.method == "centralized":
+            from .train import make_centralized_dataset
+            data = make_centralized_dataset(data)
+    mcfg = cfg.glasu_config(data)
+    like = glasu.init_params(torch.Generator().manual_seed(0), mcfg)
+    like_leaves = tree_leaves(like)
+    n_params = len(like_leaves)
+    n_opt = 1 + OPT_STATE_COPIES[cfg.optimizer] * n_params
+
+    try:
+        blob = np.load(fn)
+        meta = json.loads(bytes(blob["__meta__"]).decode())
+    except (zipfile.BadZipFile, OSError, ValueError, KeyError,
+            json.JSONDecodeError) as e:
+        raise RuntimeError(
+            f"corrupt checkpoint {fn}: {type(e).__name__}: {e}") from e
+    if meta["n"] != n_opt + n_params:
+        raise RuntimeError(
+            f"corrupt/mismatched checkpoint {fn}: stores {meta['n']} "
+            f"leaves, the config's params+opt_state tree has "
+            f"{n_opt + n_params} (different optimizer or model than "
+            "experiment.json claims?)")
+    leaves = []
+    for i, want in zip(range(n_opt, n_opt + n_params), like_leaves):
+        dt = meta["dtypes"][i]
+        try:
+            arr = blob[f"leaf_{i}"]
+        except (zipfile.BadZipFile, KeyError, OSError, ValueError) as e:
+            raise RuntimeError(
+                f"corrupt checkpoint {fn}: leaf_{i} unreadable: "
+                f"{type(e).__name__}: {e}") from e
+        if dt == "bfloat16":
+            t = _bf16_from_bits(arr)
+        elif dt == "float32":
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+        else:
+            raise RuntimeError(
+                f"corrupt/mismatched checkpoint {fn}: params leaf_{i} has "
+                f"dtype {dt}, expected float32 or bfloat16")
+        if tuple(t.shape) != tuple(want.shape):
+            raise RuntimeError(
+                f"corrupt/mismatched checkpoint {fn}: params leaf shape "
+                f"{tuple(t.shape)} != expected {tuple(want.shape)}")
+        leaves.append(t.to(dev))
+    params = _unflatten(like, leaves)
+    return InferenceRestore(params=params, config=cfg, step=int(step),
+                            data=data)

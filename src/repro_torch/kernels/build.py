@@ -1,0 +1,112 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds) and
+is loaded with ``ctypes``. Libraries go to ``build/kernels/`` at the root of
+the checkout, named by a hash of the source and the flags, so an edited
+source rebuilds and an unchanged one is reused. Builds happen at first use,
+never at import: ``import repro_torch`` works on a machine without CUDA.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List, NamedTuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of each kernel's entry point: (symbol, argtypes); every entry
+# point returns the cudaError_t of its launch as an int
+SIGNATURES = {
+    "gcnii_layer": ("gcnii_layer_launch",
+                    [_P, _P, _P, _P, _P, _P, _P,        # h h0 idx mask w b out
+                     _I, _I, _I, _I, _I,                # m n_src n_dst f1 d
+                     _F, _F, _I, _P]),                  # alpha beta device stream
+}
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+class BuildResult(NamedTuple):
+    name: str
+    path: Path
+    seconds: float       # 0.0 when the library was already built
+    log: str             # nvcc's output (-Xptxas -v: registers, smem, spills)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "port's CUDA kernels are built from source at first use")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(names: List[str]) -> List[BuildResult]:
+    """Compile every named kernel that is not built yet, one ``nvcc`` per
+    source, all started together. Raises with nvcc's stderr on failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    done = []
+    for name in names:
+        out = library_path(name)
+        if out.is_file():
+            done.append(BuildResult(name, out, 0.0, ""))
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((name, out, tmp, cmd, proc, time.perf_counter()))
+    errors = []
+    for name, out, tmp, cmd, proc, t0 in jobs:
+        stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            errors.append(f"nvcc failed for {name} (exit {proc.returncode}):"
+                          f"\n$ {' '.join(cmd)}\n{stderr}{stdout}")
+            continue
+        os.replace(tmp, out)          # atomic: concurrent builds agree
+        done.append(BuildResult(name, out, seconds, stderr + stdout))
+    if errors:
+        raise RuntimeError("\n\n".join(errors))
+    return done
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            (res,) = build([name])
+            lib = ctypes.CDLL(str(res.path))
+            symbol, argtypes = SIGNATURES[name]
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[name] = lib
+        return lib

@@ -1,0 +1,427 @@
+"""Joint-inference serving session.
+
+Counterpart of ``repro.serve.session``. ``InferenceSession`` holds the
+trained per-client parameter stack on its device (restored via
+``core.checkpoint.load_for_inference`` — params only), the per-client
+features and neighbor tables, and answers node-classification queries
+through the same split-model forward as exact full-graph inference.
+
+Query path, per dispatch:
+
+1. **Cache probe** at the top aggregation layer (L-1). If every queried
+   node hits, the answer is assembled straight from cached aggregates and
+   one tiny classifier matmul — no receptive field, no cross-client
+   exchange, zero wire bytes.
+2. Otherwise a **receptive-field plan** is built on the host (numpy,
+   identical to the reference's): walking layers top-down, rows already
+   cached at an aggregation layer are pruned, the remaining rows expand
+   through the padded eval neighbor tables (``core.train._eval_tables``),
+   and the plan is padded to bucketed static shapes.
+3. One dispatch of ``core.glasu.serve_forward`` on the session's device
+   (on CUDA every GCNII layer is one launch of the hand-written kernel for
+   all clients) runs the plan with cached rows injected after each
+   aggregation; fresh aggregates are written back to the cache keyed on
+   (node, layer) at the current ``params_version``.
+
+Byte accounting prices exactly the FRESH rows at each aggregation layer,
+as the reference's ``_price`` does. Only the uncompressed, single-device
+(``vmapped``) engine is ported; wire codecs, the sharded engine and the
+message-log replay raise.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core import checkpoint, glasu
+from ..core.train import _eval_tables
+from ..device import resolve_device
+from ..graph.sampler import SampledBatch
+from .cache import HotNodeCache
+from .config import ServeConfig
+from .metrics import ServeAnswer, ServeMetrics
+
+_UNSET = object()
+
+
+class QueryPlan(NamedTuple):
+    batch: SampledBatch          # device tensors, bucket-static shapes
+    inject: Dict[int, Any]       # agg layer -> (keep (n,), rows (M,n,h_agg))
+    fresh: Dict[int, int]        # agg layer -> rows exchanged fresh
+    fills: Dict[int, Any]        # agg layer -> (ids (n,), compute mask (n,))
+
+
+class InferenceSession:
+    """Answer node-classification queries on a trained GLASU model.
+
+    ``device`` defaults to CUDA and raises where there is none; pass
+    ``device="cpu"`` for the plain PyTorch versions. ``params`` is the
+    client-stacked tree of tensors (``checkpoint.params_from_numpy`` turns
+    a reference tree into one); it is moved to ``device``.
+    """
+
+    def __init__(self, params, config, data=None, *, serve=None,
+                 compression=_UNSET, params_version: int = 0, device=None):
+        self.device = resolve_device(device)
+        if compression is not _UNSET:
+            config = config.with_(compression=compression)
+        if serve is None:
+            serve = getattr(config, "serve", None) or ServeConfig()
+        elif isinstance(serve, dict):
+            serve = ServeConfig(**serve)
+        if serve.engine != "vmapped":
+            raise NotImplementedError(
+                f"serve engine {serve.engine!r} is not ported yet (the port "
+                "serves on one device: engine='vmapped')")
+        if serve.record_log:
+            raise NotImplementedError(
+                "record_log (the message-log replay) is not ported yet")
+        self.config = config
+        self.serve = serve
+        if data is None:
+            from ..graph.synth import make_vfl_dataset
+            data = make_vfl_dataset(config.dataset,
+                                    n_clients=config.n_clients,
+                                    seed=config.seed)
+            if config.method == "centralized":
+                from ..core.train import make_centralized_dataset
+                data = make_centralized_dataset(data)
+        self.data = data
+        self.mcfg = config.glasu_config(data)
+        self.params = checkpoint.tree_map(lambda t: t.to(self.device), params)
+        self.params_version = int(params_version)
+
+        m = self.mcfg
+        self.M, self.L, self.N = m.n_clients, m.n_layers, data.n_nodes
+        self.h_agg = m.hidden * (self.M if m.agg == "concat" else 1)
+        feats, nbr_idx, nbr_mask = _eval_tables(
+            data, config.eval_table_cap, config.seed)
+        self._np_feats = feats                        # (M, N, d_pad) host
+        self._feats_dev = self._stage(feats)
+        self._nbr_idx = nbr_idx                       # (M, N, W) host
+        self._nbr_mask = nbr_mask
+        self._nbr_idx_dev = self._stage(nbr_idx)
+        self._nbr_mask_dev = self._stage(nbr_mask)
+        self.W = self._nbr_idx.shape[-1]
+        self._identity = np.arange(self.N, dtype=np.int32)
+
+        self.cache = HotNodeCache(serve.cache_entries, serve.max_staleness)
+        self.metrics = ServeMetrics()
+        self._lock = threading.Lock()
+        self._sizes: Dict[int, list] = {}
+
+    def _stage(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _cls(self, rows, real):
+        """Per-client classifier heads and their ensemble mean. Pad rows
+        are zeroed BEFORE the head so warm/cold assembly of the same real
+        rows is bitwise identical regardless of pad junk."""
+        rows = rows * real[None, :, None]
+        per = glasu._linear(self.params["cls"], rows)
+        return per, per.mean(dim=0)
+
+    # ------------------------------------------------------------ factory
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir: str, step: Optional[int] = None,
+                        data=None, *, serve=None, compression=_UNSET,
+                        device=None):
+        """Build a session from a reference training checkpoint directory
+        (params only). ``params_version`` starts at the restored step."""
+        r = checkpoint.load_for_inference(ckpt_dir, step=step, data=data,
+                                          device=device)
+        return cls(r.params, r.config, r.data, serve=serve,
+                   compression=compression, params_version=r.step,
+                   device=device)
+
+    # --------------------------------------------------------- query plan
+    def _plan_sizes(self, bucket: int) -> list:
+        """Static per-level set sizes for one bucket: level L holds the
+        padded queries; each level below can add at most M*(W-1) table
+        neighbors per computed row, capped at N (identity set)."""
+        if bucket not in self._sizes:
+            sizes = [0] * (self.L + 1)
+            sizes[self.L] = bucket
+            grow = 1 + self.M * (self.W - 1)
+            for l in range(self.L - 1, -1, -1):
+                sizes[l] = min(self.N, sizes[l + 1] * grow)
+            self._sizes[bucket] = sizes
+        return self._sizes[bucket]
+
+    def _bucket(self, b: int) -> int:
+        for bk in self.serve.resolved_buckets():
+            if bk >= b:
+                return bk
+        raise ValueError(f"batch of {b} exceeds largest bucket "
+                         f"{self.serve.resolved_buckets()[-1]}")
+
+    def _build_plan(self, q_ids: np.ndarray, bucket: int,
+                    top_hit: np.ndarray, top_rows: np.ndarray) -> QueryPlan:
+        """Receptive-field plan for one padded query batch (host numpy).
+
+        Top-down: decide per level which rows must be computed (needed,
+        real, not cache-hit), expand only those rows' neighbors into the
+        level below, and keep EVERY real row's self-chain so the backbone's
+        h0/self_pos bookkeeping stays node-aligned (GCNII reads h0 at the
+        self position of every layer). ``top_hit``/``top_rows`` are the
+        already-probed cache state at layer L-1.
+        """
+        M, L, N = self.M, self.L, self.N
+        agg_layers = self.mcfg.agg_layers
+        sizes = self._plan_sizes(bucket)
+        b = len(q_ids)
+
+        sets = [None] * (L + 1)
+        needs = [None] * (L + 1)
+        computes = [None] * L
+        inject: Dict[int, Any] = {}
+        fresh: Dict[int, int] = {}
+        fills: Dict[int, Any] = {}
+
+        ids = np.full(bucket, -1, dtype=np.int32)
+        ids[:b] = q_ids
+        sets[L] = ids
+        needs[L] = ids >= 0
+
+        for l in range(L - 1, -1, -1):
+            cur, need = sets[l + 1], needs[l + 1]
+            real = cur >= 0
+            if l in agg_layers:
+                n_out = sizes[l + 1]
+                if l == L - 1:
+                    hit = np.zeros(n_out, dtype=np.float32)
+                    hit[:len(top_hit)] = top_hit
+                    rows = np.zeros((n_out, M, self.h_agg),
+                                    dtype=np.float32)
+                    rows[:len(top_rows)] = top_rows
+                else:
+                    hit, rows = self.cache.lookup(
+                        l, np.where(need & real, cur, -1),
+                        self.params_version, (M, self.h_agg))
+                hitb = (hit > 0) & real & need
+                compute = need & real & ~hitb
+                inject[l] = (hitb.astype(np.float32),
+                             np.ascontiguousarray(rows.transpose(1, 0, 2)))
+                fresh[l] = int(compute.sum())
+                fills[l] = (cur.copy(), compute.copy())
+            else:
+                compute = need & real
+            computes[l] = compute
+
+            n_in = sizes[l]
+            cnodes = cur[compute]
+            if len(cnodes):
+                nb = self._nbr_idx[:, cnodes, :]
+                nbr_ids = nb[self._nbr_mask[:, cnodes, :] > 0]
+                need_ids = np.unique(np.concatenate([cnodes, nbr_ids]))
+            else:
+                need_ids = cnodes
+            if n_in == N:
+                sets[l] = self._identity
+                nmask = np.zeros(N, dtype=bool)
+                nmask[need_ids] = True
+                needs[l] = nmask
+            else:
+                self_ids = np.unique(cur[real])
+                src_ids = np.union1d(self_ids, need_ids)
+                ids_l = np.full(n_in, -1, dtype=np.int32)
+                ids_l[:len(src_ids)] = src_ids
+                sets[l] = ids_l
+                nmask = np.zeros(n_in, dtype=bool)
+                nmask[:len(src_ids)] = np.isin(src_ids, need_ids)
+                needs[l] = nmask
+
+        gi_t, gm_t, rv_t, sp_t = [], [], [], []
+        lut = np.full(N, -1, dtype=np.int32)
+        for l in range(L):
+            src, dst = sets[l], sets[l + 1]
+            n_in, n_out = sizes[l], sizes[l + 1]
+            safe_dst = np.maximum(dst, 0)
+            ti = self._nbr_idx[:, safe_dst, :]           # (M, n_out, W)
+            tm = self._nbr_mask[:, safe_dst, :]
+            if n_in == N:
+                pos, selfpos = ti, safe_dst
+            else:
+                srcr = src[src >= 0]
+                lut[srcr] = np.arange(len(srcr), dtype=np.int32)
+                pos, selfpos = lut[ti], lut[safe_dst]
+                lut[srcr] = -1                           # reusable buffer
+            gm = (tm * (pos >= 0)
+                  * computes[l][None, :, None]).astype(np.float32)
+            gi = np.maximum(pos, 0).astype(np.int32)
+            # force column 0 = the row's own position: every row (cached,
+            # chain-only, padding) gathers at least one valid entry, so
+            # every h_plus is finite
+            sp = np.maximum(selfpos, 0).astype(np.int32)
+            gi[:, :, 0] = sp[None, :]
+            gm[:, :, 0] = 1.0
+            gi_t.append(self._stage(gi))
+            gm_t.append(self._stage(gm))
+            rv_t.append(self._stage(np.broadcast_to(
+                (dst >= 0).astype(np.float32), (M, n_out))))
+            sp_t.append(self._stage(np.broadcast_to(sp, (M, n_out))))
+
+        src0 = sets[0]
+        if sizes[0] == N:
+            feats = self._feats_dev          # resident; no per-query copy
+        else:
+            valid = (src0 >= 0).astype(np.float32)[None, :, None]
+            feats = self._stage(
+                self._np_feats[:, np.maximum(src0, 0), :] * valid)
+        # labels are a dead input on the serve path
+        labels = torch.zeros(bucket, dtype=torch.int32, device=self.device)
+        batch = SampledBatch(
+            feats=feats, gather_idx=tuple(gi_t), gather_mask=tuple(gm_t),
+            row_valid=tuple(rv_t), labels=labels, self_pos=tuple(sp_t))
+        inject_dev = {l: (self._stage(k), self._stage(r))
+                      for l, (k, r) in inject.items()}
+        return QueryPlan(batch=batch, inject=inject_dev, fresh=fresh,
+                         fills=fills)
+
+    # ----------------------------------------------------------- serving
+    def _price(self, fresh: Dict[int, int]) -> Tuple[int, int, int]:
+        """(upload, broadcast, index) bytes for one query's fresh rows:
+        each client uploads its (n_fresh, hidden) float32 block, receives
+        the (n_fresh, h_agg) aggregate back, plus the int32 fresh-row ids."""
+        m = self.mcfg
+        up = down = idx = 0
+        for l in m.agg_layers:
+            n = fresh.get(l, 0)
+            if n == 0:
+                continue
+            up += self.M * n * m.hidden * 4
+            down += self.M * n * self.h_agg * 4
+            idx += self.M * n * 4
+        return up, down, idx
+
+    def answer(self, nodes) -> ServeAnswer:
+        """Answer a node-classification query for ``nodes`` (any order,
+        duplicates fine). Requests beyond ``max_batch`` are split into
+        sequential dispatches and recombined."""
+        nodes = np.asarray(nodes, dtype=np.int32).ravel()
+        if nodes.size == 0:
+            raise ValueError("empty query")
+        if nodes.min() < 0 or nodes.max() >= self.N:
+            raise ValueError(
+                f"query ids must be in [0, {self.N}), got range "
+                f"[{nodes.min()}, {nodes.max()}]")
+        mb = self.serve.max_batch
+        chunks = [nodes[i:i + mb] for i in range(0, len(nodes), mb)]
+        answers = []
+        with self._lock, torch.inference_mode():
+            for c in chunks:
+                ans = self._answer_locked(c)
+                self.metrics.record(ans)
+                answers.append(ans)
+        if len(answers) == 1:
+            return answers[0]
+        return ServeAnswer(
+            nodes=nodes,
+            logits=np.concatenate([a.logits for a in answers]),
+            per_client=np.concatenate([a.per_client for a in answers],
+                                      axis=1),
+            preds=np.concatenate([a.preds for a in answers]),
+            fresh_rows={l: sum(a.fresh_rows.get(l, 0) for a in answers)
+                        for l in self.mcfg.agg_layers},
+            upload_bytes=sum(a.upload_bytes for a in answers),
+            broadcast_bytes=sum(a.broadcast_bytes for a in answers),
+            index_bytes=sum(a.index_bytes for a in answers),
+            cache_hits=sum(a.cache_hits for a in answers),
+            cache_misses=sum(a.cache_misses for a in answers),
+            latency_s=sum(a.latency_s for a in answers),
+            cold=any(a.cold for a in answers),
+            params_version=self.params_version,
+            log=None)
+
+    def _answer_locked(self, nodes: np.ndarray) -> ServeAnswer:
+        t0 = time.perf_counter()
+        m = self.mcfg
+        uniq, inv = np.unique(nodes, return_inverse=True)
+        b = len(uniq)
+        bucket = self._bucket(b)
+        top = self.L - 1 if self.mcfg.agg_layers else None
+
+        if top is not None:
+            top_hit, top_rows = self.cache.lookup(
+                top, uniq, self.params_version, (self.M, self.h_agg))
+        else:
+            top_hit = np.zeros(b, dtype=np.float32)
+            top_rows = np.zeros((b, self.M, self.h_agg), dtype=np.float32)
+
+        if top is not None and bool(top_hit.all()):
+            # warm fast path: no plan, no layer stack, zero wire bytes
+            rows = np.zeros((bucket, self.M, self.h_agg), dtype=np.float32)
+            rows[:b] = top_rows
+            fresh = {l: 0 for l in m.agg_layers}
+            cold = False
+        else:
+            plan = self._build_plan(uniq, bucket, top_hit, top_rows)
+            h, aggs = glasu.serve_forward(self.params, plan.batch, self.mcfg,
+                                          cache_inject=plan.inject)
+            # host roundtrip on purpose: the warm path assembles the same
+            # f32 rows from cache, so both paths feed the classifier
+            # bitwise-identical arrays
+            rows = np.ascontiguousarray(
+                h.cpu().numpy().transpose(1, 0, 2)).astype(
+                    np.float32, copy=False)
+            for l, (ids_l, comp) in plan.fills.items():
+                if comp.any():
+                    stack = aggs[l].cpu().numpy()      # (M, n, h_agg)
+                    self.cache.insert(
+                        l, ids_l[comp], self.params_version,
+                        np.ascontiguousarray(
+                            stack[:, comp, :].transpose(1, 0, 2)))
+            fresh = plan.fresh
+            cold = True
+
+        real = np.zeros(bucket, dtype=np.float32)
+        real[:b] = 1.0
+        per, ens = self._cls(self._stage(rows.transpose(1, 0, 2)),
+                             self._stage(real))
+        per = per.cpu().numpy()[:, :b, :][:, inv, :]
+        ens = ens.cpu().numpy()[:b][inv]
+        up, down, idx = self._price(fresh)
+        # hit/miss on the answer are the top-layer probe's outcome — the
+        # decision that picks warm vs cold
+        n_hit = int((top_hit > 0).sum())
+        n_miss = b - n_hit
+        return ServeAnswer(
+            nodes=np.array(nodes), logits=ens, per_client=per,
+            preds=np.argmax(ens, axis=-1).astype(np.int32),
+            fresh_rows=dict(fresh), upload_bytes=up, broadcast_bytes=down,
+            index_bytes=idx, cache_hits=n_hit, cache_misses=n_miss,
+            latency_s=time.perf_counter() - t0, cold=cold,
+            params_version=self.params_version, log=None)
+
+    # -------------------------------------------------------- management
+    def update_params(self, params, version: Optional[int] = None):
+        """Swap in new parameters (moved to the session's device) and bump
+        ``params_version``; cache entries outside the staleness bound are
+        evicted immediately."""
+        with self._lock:
+            self.params = checkpoint.tree_map(lambda t: t.to(self.device),
+                                              params)
+            self.params_version = (int(version) if version is not None
+                                   else self.params_version + 1)
+            self.cache.drop_older_than(self.params_version)
+
+    def precompute(self, chunk: int = 4096) -> np.ndarray:
+        """Warm the cache for EVERY node from one exact chunked
+        ``full_forward`` sweep; returns the (M, N, C) full-graph logits.
+        The collected aggregate stacks carry exactly the N real nodes, so
+        chunk padding can never enter the cache."""
+        with self._lock, torch.inference_mode():
+            logits, aggs = glasu.full_forward(
+                self.params, self.mcfg, self._feats_dev,
+                self._nbr_idx_dev, self._nbr_mask_dev, chunk=chunk,
+                collect_agg=True)
+            for l, stack in aggs.items():
+                self.cache.insert(
+                    l, self._identity, self.params_version,
+                    np.ascontiguousarray(
+                        stack.cpu().numpy().transpose(1, 0, 2)))
+            return logits.cpu().numpy()

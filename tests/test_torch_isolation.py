@@ -1,0 +1,124 @@
+"""The port stands alone: no jax, no ``repro``, no silent CPU fallback.
+
+  * an AST scan: nothing under ``src/repro_torch/`` and not
+    ``chip_smoke.py`` imports ``jax`` or ``repro``;
+  * every module imports in a fresh interpreter where ``triton`` cannot be
+    imported, and leaves no jax module behind;
+  * entry points default to CUDA and raise where there is none;
+  * ``chip_smoke.py`` exits non-zero and prints no result without CUDA,
+    and without the rest of the repository beside it.
+"""
+import ast
+import json
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.api import ExperimentConfig
+from repro_torch.core import checkpoint
+from repro_torch.device import resolve_device
+from repro_torch.serve import InferenceSession
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+SMOKE = ROOT / "chip_smoke.py"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [SMOKE]
+
+
+def _imported_modules(path):
+    """Absolute module names a file imports (relative imports stay inside
+    its own package and are skipped)."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_never_imports_jax_or_reference(path):
+    for name in _imported_modules(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), \
+            f"{path.relative_to(ROOT)} imports {name}"
+
+
+def test_every_module_imports_without_triton_or_jax():
+    mods = []
+    for p in sorted(PORT.rglob("*.py")):
+        parts = p.relative_to(PORT).with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(("repro_torch",) + parts))
+    code = (
+        "import sys\n"
+        "sys.modules['triton'] = None\n"      # `import triton` now raises
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and "
+        "m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available: the default device resolves")
+
+
+def test_default_device_is_cuda_and_raises_without_it():
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        checkpoint.params_from_numpy({"W": np.ones(2, np.float32)})
+    params = checkpoint.params_from_numpy({"W": np.ones(2, np.float32)},
+                                          "cpu")
+    with pytest.raises(RuntimeError, match="is_available"):
+        InferenceSession(params, ExperimentConfig(dataset="tiny"))
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=120)
+
+
+def _assert_no_result(out):
+    assert out.returncode != 0
+    for line in out.stdout.splitlines():
+        try:
+            blob = json.loads(line)
+        except ValueError:
+            continue
+        assert not (isinstance(blob, dict) and blob.get("ok")), line
+
+
+def test_chip_smoke_fails_without_cuda():
+    _no_cuda()
+    out = _run_smoke(ROOT)
+    _assert_no_result(out)
+    assert "CUDA" in out.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(SMOKE, tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    _assert_no_result(out)

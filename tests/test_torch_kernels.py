@@ -1,0 +1,232 @@
+"""Port parity: the GCNII layer and the backbone oracles against JAX.
+
+The same numpy inputs go through ``repro``'s Pallas kernel (interpret mode
+on the CPU, as ``tests/test_kernels.py`` runs it) and its jnp oracles, and
+through ``repro_torch``'s plain versions. Tolerances are the reference's
+own kernel tolerances (rtol = atol = 2e-5; 3e-5 for GAT). The rows marked
+``cuda`` hold the hand-written kernel against its plain version and skip
+where there is no card.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as jref
+from repro.models import gnn as jgnn
+from repro_torch.kernels import build
+from repro_torch.kernels import graph_agg, ops
+from repro_torch.kernels import ref as tref
+from repro_torch.models import gnn as tgnn
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+GAT_TOL = dict(rtol=3e-5, atol=3e-5)
+
+
+def _gcnii_inputs(seed, m, n_src, n_dst, f1, d, case="plain"):
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(m, n_src, d)).astype(np.float32)
+    h0 = rng.normal(size=(m, n_src, d)).astype(np.float32)
+    idx = rng.integers(0, n_src, size=(m, n_dst, f1)).astype(np.int32)
+    mask = (rng.random((m, n_dst, f1)) < 0.8).astype(np.float32)
+    mask[:, :, 0] = 1.0                      # self column, as the plans set it
+    if case == "ragged":
+        mask[:, ::3, :] = 0.0                # zero-degree rows
+        mask[:, 1::3, 0] = 0.0               # mask[:, 0] = 0: h0 still read
+    w = (rng.normal(size=(m, d, d)) / np.sqrt(d)).astype(np.float32)
+    b = rng.normal(size=(m, d)).astype(np.float32)
+    return h, h0, idx, mask, w, b
+
+
+GCNII_CASES = [
+    # m, n_src, n_dst, f1, d, case, alpha, beta
+    (3, 300, 130, 4, 64, "plain", 0.1, 0.25),     # n_dst % 128 != 0
+    (2, 80, 1, 6, 24, "plain", 0.3, 0.125),       # n_dst = 1, d = 24
+    (3, 90, 77, 9, 24, "ragged", 0.2, 0.5),       # zero rows, mask[:, 0] = 0
+    (3, 2708, 40, 33, 64, "plain", 0.1, 0.5 / 3),  # cora's source set, W = 33
+]
+
+
+@pytest.mark.parametrize("m,n_src,n_dst,f1,d,case,alpha,beta", GCNII_CASES)
+def test_gcnii_plain_matches_pallas_and_oracle(m, n_src, n_dst, f1, d, case,
+                                               alpha, beta):
+    h, h0, idx, mask, w, b = _gcnii_inputs(0, m, n_src, n_dst, f1, d, case)
+    got = graph_agg.gcnii_layer_plain(
+        *map(torch.from_numpy, (h, h0, idx, mask, w, b)),
+        alpha=alpha, beta=beta).numpy()
+    assert got.shape == (m, n_dst, d)
+    for c in range(m):
+        args = tuple(jnp.asarray(x[c]) for x in (h, h0, idx, mask, w, b))
+        pallas = ref_ops.gcnii_layer(*args, alpha=alpha, beta=beta)
+        oracle = jref.gcnii_layer_ref(*args, alpha, beta)
+        np.testing.assert_allclose(got[c], np.asarray(pallas), **TOL)
+        np.testing.assert_allclose(got[c], np.asarray(oracle), **TOL)
+        single = tref.gcnii_layer_ref(
+            *(torch.from_numpy(x[c]) for x in (h, h0, idx, mask, w, b)),
+            alpha, beta).numpy()
+        np.testing.assert_allclose(single, np.asarray(oracle), **TOL)
+
+
+def test_ops_dispatch_cpu_takes_plain_version():
+    h, h0, idx, mask, w, b = map(torch.from_numpy,
+                                 _gcnii_inputs(1, 2, 50, 20, 4, 16))
+    before = graph_agg.gcnii_layer_cuda.launches
+    got = ops.gcnii_layer(h, h0, idx, mask, w, b, alpha=0.1, beta=0.5)
+    want = graph_agg.gcnii_layer_plain(h, h0, idx, mask, w, b, alpha=0.1,
+                                       beta=0.5)
+    assert torch.equal(got, want)
+    assert graph_agg.gcnii_layer_cuda.launches == before
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    args = map(torch.from_numpy, _gcnii_inputs(2, 1, 10, 4, 3, 8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        graph_agg.gcnii_layer_cuda(*args, alpha=0.1, beta=0.5)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.gcnii_layer(*(torch.empty(1, 1, 1, device="meta")
+                          for _ in range(6)), alpha=0.1, beta=0.5)
+
+
+def test_build_names_library_by_source_hash(tmp_path, monkeypatch):
+    path = build.library_path("gcnii_layer")
+    assert path.parent == build.BUILD_DIR
+    assert path.name.startswith("gcnii_layer-") and path.suffix == ".so"
+    assert build.library_path("gcnii_layer") == path
+    src = tmp_path / "gcnii_layer.cu"
+    src.write_text((build.CSRC / "gcnii_layer.cu").read_text() + "\n// edit\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert build.library_path("gcnii_layer") != path
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    if build.Path("/usr/local/cuda/bin/nvcc").is_file():
+        pytest.skip("nvcc is installed under /usr/local/cuda")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build(["gcnii_layer"])
+
+
+# ------------------------------------------------------------ other oracles
+def _layer_inputs(seed, n_src, n_dst, f1, d):
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(n_src, d)).astype(np.float32)
+    idx = rng.integers(0, n_src, size=(n_dst, f1)).astype(np.int32)
+    mask = (rng.random((n_dst, f1)) < 0.7).astype(np.float32)
+    mask[::5] = 0.0
+    return h, idx, mask
+
+
+@pytest.mark.parametrize("n_src,n_dst,f1,d,d_out", [
+    (64, 32, 4, 16, 8), (300, 130, 5, 64, 32)])
+def test_gcn_oracles_match_jax(n_src, n_dst, f1, d, d_out):
+    h, idx, mask = _layer_inputs(3, n_src, n_dst, f1, d)
+    rng = np.random.default_rng(4)
+    w = rng.normal(size=(d, d_out)).astype(np.float32)
+    b = rng.normal(size=(d_out,)).astype(np.float32)
+    th, tidx, tmask, tw, tb = map(torch.from_numpy, (h, idx, mask, w, b))
+    jh, jidx, jmask, jw, jb = map(jnp.asarray, (h, idx, mask, w, b))
+    np.testing.assert_allclose(
+        tref.graph_agg_ref(th, tidx, tmask, tw).numpy(),
+        np.asarray(jref.graph_agg_ref(jh, jidx, jmask, jw)), **TOL)
+    np.testing.assert_allclose(
+        tgnn.gcn_layer({"W": tw, "b": tb}, th, th, tidx, tmask).numpy(),
+        np.asarray(jgnn.gcn_layer({"W": jw, "b": jb}, jh, jh, jidx, jmask)),
+        **TOL)
+    np.testing.assert_allclose(
+        tgnn.gather_mean(th, tidx, tmask).numpy(),
+        np.asarray(jgnn.gather_mean(jh, jidx, jmask)), **TOL)
+
+
+@pytest.mark.parametrize("n_src,n_dst,f1,d,heads,dh", [
+    (200, 77, 4, 32, 4, 16)])
+def test_gat_oracles_match_jax(n_src, n_dst, f1, d, heads, dh):
+    h, idx, mask = _layer_inputs(5, n_src, n_dst, f1, d)
+    mask[:, 0] = 1.0                         # GAT needs >= 1 live logit
+    rng = np.random.default_rng(6)
+    p = {"W": rng.normal(size=(d, heads, dh)).astype(np.float32) * 0.3,
+         "a_src": rng.normal(size=(heads, dh)).astype(np.float32),
+         "a_dst": rng.normal(size=(heads, dh)).astype(np.float32),
+         "b": rng.normal(size=(heads * dh,)).astype(np.float32)}
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    th, tidx, tmask = map(torch.from_numpy, (h, idx, mask))
+    jh, jidx, jmask = map(jnp.asarray, (h, idx, mask))
+    want = np.asarray(jref.gat_layer_ref(jh, jidx, jmask, jp["W"],
+                                         jp["a_src"], jp["a_dst"], jp["b"]))
+    got = tref.gat_layer_ref(th, tidx, tmask, tp["W"], tp["a_src"],
+                             tp["a_dst"], tp["b"]).numpy()
+    np.testing.assert_allclose(got, want, **GAT_TOL)
+    np.testing.assert_allclose(
+        tgnn.gat_layer(tp, th, th, tidx, tmask).numpy(),
+        np.asarray(jgnn.gat_layer(jp, jh, jh, jidx, jmask)), **GAT_TOL)
+
+
+def test_gcnii_backbone_layer_matches_jax():
+    h, h0, idx, mask, w, b = (x[0] for x in _gcnii_inputs(7, 1, 100, 50, 6, 32))
+    got = tgnn.gcnii_layer({"W": torch.from_numpy(w), "b": torch.from_numpy(b)},
+                           *map(torch.from_numpy, (h, h0, idx, mask)),
+                           alpha=0.2, beta=0.25).numpy()
+    want = jgnn.gcnii_layer({"W": jnp.asarray(w), "b": jnp.asarray(b)},
+                            *map(jnp.asarray, (h, h0, idx, mask)),
+                            alpha=0.2, beta=0.25)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def test_init_shapes_and_scales_match_reference():
+    g = torch.Generator().manual_seed(0)
+    for name in tgnn.BACKBONES:
+        kw = {"n_heads": 4} if name == "gat" else {}
+        got = tgnn.BACKBONES[name][0](g, 64, 64, **kw)
+        want = jax.eval_shape(lambda k: jgnn.BACKBONES[name][0](k, 64, 64,
+                                                                **kw),
+                              jax.random.PRNGKey(0))
+        assert got.keys() == want.keys()
+        for k in got:
+            assert tuple(got[k].shape) == want[k].shape, (name, k)
+            assert got[k].dtype == torch.float32
+        assert abs(float(got["W"].std()) - (2.0 / 64) ** 0.5) < 0.01
+        assert torch.count_nonzero(got["b"]) == 0
+
+
+# ------------------------------------------------------- kernel on the card
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the hand-written kernel runs only on "
+                    "the card (chip_smoke.py drives it there)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n_src,n_dst,f1,d,case,alpha,beta", GCNII_CASES)
+def test_gcnii_cuda_kernel_matches_plain(cuda_device, m, n_src, n_dst, f1, d,
+                                         case, alpha, beta):
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in _gcnii_inputs(8, m, n_src, n_dst, f1, d, case)]
+    before = graph_agg.gcnii_layer_cuda.launches
+    got = graph_agg.gcnii_layer_cuda(*args, alpha=alpha, beta=beta)
+    torch.cuda.synchronize()
+    assert graph_agg.gcnii_layer_cuda.launches == before + 1
+    want = graph_agg.gcnii_layer_plain(*args, alpha=alpha, beta=beta)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_gcnii_cuda_wrapper_rejects_strided_input(cuda_device):
+    h, h0, idx, mask, w, b = [torch.from_numpy(x).to(cuda_device)
+                              for x in _gcnii_inputs(9, 3, 40, 8, 4, 16)]
+    broadcast = h[:1].expand(3, -1, -1)          # stride 0 on the client axis
+    with pytest.raises(ValueError, match="not contiguous"):
+        graph_agg.gcnii_layer_cuda(broadcast, h0, idx, mask, w, b,
+                                   alpha=0.1, beta=0.5)
+    with pytest.raises(TypeError, match="int32"):
+        graph_agg.gcnii_layer_cuda(h, h0, idx.long(), mask, w, b,
+                                   alpha=0.1, beta=0.5)
+    w.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        ops.gcnii_layer(h, h0, idx, mask, w, b, alpha=0.1, beta=0.5)
