@@ -7,24 +7,35 @@ Phases, each printing its own lines:
 
 1. device   the card's ``name, power.limit`` from nvidia-smi; TF32 off for
             matmuls and cuDNN, so every comparison is in full fp32;
-2. build    compiles every kernel of the serving path from the sources in
-            this checkout (``src/repro_torch/kernels/csrc``) and prints the
-            build seconds and ptxas' register/shared-memory report;
+2. build    compiles every kernel of the serving and training paths from
+            the sources in this checkout (``src/repro_torch/kernels/csrc``,
+            one nvcc per source, all started together) and prints the build
+            seconds and ptxas' register/shared-memory report;
 3. kernels  holds each kernel against its plain PyTorch version on the card
-            at the serving shapes of ``cora-gcnii-glasu`` and on ragged
-            shapes, max abs error <= 1e-5 (fp32, fanout sums in another
-            order), and times both with CUDA events (median of 30 after
-            warm-up) beside the least time the card could take;
+            at the serving, training and eval shapes and on ragged shapes,
+            max abs error <= 1e-5 (fp32, fanout sums in another order), and
+            times both with CUDA events (median of 30 after warm-up) beside
+            the least time the card could take; then each op's gradients on
+            the card against the CPU's at rtol = atol = 1e-4 (cuBLAS sums
+            the backward's products in another order) and the backward's
+            device time;
 4. slice    serves ``cora-gcnii-glasu`` at full width (M = 3, L = 4,
             hidden 64, d_in 478) from seeded random parameters: a 16-query
             cold answer, the same query warm (bitwise equal, 0 wire bytes),
             ``precompute()`` and a fresh session's cold answer against the
             full-graph logits, and the same cold answer on the CPU (plain
-            versions) at rtol = atol = 1e-4. The kernels' launch counters
-            are zeroed just before this run and read just after it: the
-            run fails if a kernel of the path was never launched;
-5. result   one JSON line per kernel, then the final JSON line.
+            versions) at rtol = atol = 1e-4;
+5. train    ``Trainer(get_preset(name)).run()`` for ``cora-gcn-glasu`` and
+            ``cora-gcnii-glasu`` at full width, 200 rounds each (Alg 1,
+            Q = 4, Adam): test accuracy >= 0.90 / 0.95, comm bytes exactly
+            164,736,000, 20 kernel launches a round; 4 rounds from the same
+            parameters and batches on the card and on the CPU; rounds/s on
+            the host clock, where a round's time goes, and one profiled
+            round's device-busy time and idle share;
+6. result   one JSON line listing every kernel, then the final JSON line.
 
+Each path's launch counters are zeroed just before its counted run and read
+just after it: the run fails if a kernel of the path was never launched.
 Any failure raises and exits non-zero; nothing is caught. Without CUDA, or
 without the rest of the repository beside this file, it exits non-zero and
 prints no result.
@@ -44,6 +55,20 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 0
 KERNEL_ATOL = 1e-5
 SLICE_TOL = dict(rtol=1e-4, atol=1e-4)
+# card vs CPU gradients and SGD rounds: fp32 sums in another order (cuBLAS
+# vs the CPU's BLAS, the kernels' fanout sums)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+# Adam rounds card vs CPU: a near-zero gradient whose sign differs moves a
+# parameter by up to 2·lr = 0.02 per step, so only the losses are held, at
+# that order (the SGD rounds are the tight comparison)
+ADAM_LOSS_TOL = dict(rtol=2e-2, atol=2e-2)
+# preset -> (its kernel's wrapper, the other kernel's, least test accuracy)
+TRAIN_PRESETS = {"cora-gcn-glasu": ("graph_agg_cuda", "gcnii_layer_cuda",
+                                    0.90),
+                 "cora-gcnii-glasu": ("gcnii_layer_cuda", "graph_agg_cuda",
+                                      0.95)}
+TRAIN_ROUNDS = None          # None: the preset's own 200 rounds
+TRAIN_COMM_BYTES = 164_736_000
 # H100 SXM peaks at its full 700 W limit (NVIDIA's data sheet): device-memory
 # rate and dense fp32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -101,6 +126,26 @@ def _gcnii_bound(torch, h, h0, idx, mask, w, b):
             nbytes, flops)
 
 
+def _gcn_bound(torch, h, idx, mask, w):
+    """(bound_ms, bound_by, bytes, flops) of one GCN launch on these inputs:
+    each input read once (of h only the rows live fanout entries
+    reference), the output written once; the gather, mean and matmul
+    flops the live entries need."""
+    m, n_dst, f1 = idx.shape
+    d, d_out = w.shape[1], w.shape[2]
+    live = mask != 0
+    rows_h = sum(int(torch.unique(idx[c][live[c]]).numel()) for c in range(m))
+    nbytes = (rows_h * d * 4 + idx.numel() * 4 + mask.numel() * 4
+              + w.numel() * 4 + m * n_dst * d_out * 4)
+    flops = (2 * int(live.sum()) * d        # masked gather-sum
+             + m * n_dst * d                # mean
+             + 2 * m * n_dst * d * d_out)   # mean @ W
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
 def phase_device(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -118,7 +163,7 @@ def phase_device(torch):
 
 def phase_build(build):
     t0 = time.perf_counter()
-    results = build.build(["gcnii_layer"])
+    results = build.build(["gcnii_layer", "graph_agg"])
     total = time.perf_counter() - t0
     for r in results:
         state = f"{r.seconds:.2f} s" if r.seconds else "already built"
@@ -198,23 +243,135 @@ def phase_kernels(torch, graph_agg):
           "relu together")
 
 
-class _Capture:
-    """Records the inputs of every ``ops.gcnii_layer`` call (cloned) while
-    active, so the kernel can be timed on exactly what the main path gave
-    it. Used on a separate warm-up session, outside the counted run."""
+def _gcn_inputs(torch, gen, m, n_src, n_dst, f1, d, d_out, case):
+    h = torch.randn(m, n_src, d, generator=gen)
+    idx = torch.randint(0, n_src, (m, n_dst, f1), generator=gen,
+                        dtype=torch.int32)
+    mask = (torch.rand(m, n_dst, f1, generator=gen) < 0.7).float()
+    mask[:, :, 0] = 1.0                      # the plans' self column
+    if case == "zero-mask rows":
+        mask[:, ::4, :] = 0.0
+    w = torch.randn(m, d, d_out, generator=gen) / d ** 0.5
+    return [t.cuda() for t in (h, idx, mask, w)]
 
-    def __init__(self, ops):
-        self.ops, self.orig, self.calls = ops, ops.gcnii_layer, []
+
+def phase_kernels_gcn(torch, graph_agg):
+    """GCN kernel vs plain at the training, eval, concat and ragged
+    shapes, forward with and without the saved mean."""
+    gen = torch.Generator().manual_seed(SEED + 1)
+    m = 3
+    cases = [
+        # label, n_src, n_dst, F+1, d, d_out, case
+        ("train l0", 512, 512, 4, 64, 64, ""),
+        ("train l1", 512, 512, 4, 64, 64, ""),
+        ("train l2", 512, 64, 4, 64, 64, ""),
+        ("train l3", 64, 16, 4, 64, 64, ""),
+        ("eval", 2708, 2708, 33, 64, 64, ""),
+        ("concat d=192", 512, 512, 4, 192, 64, ""),
+        ("n_dst=1", 512, 1, 4, 64, 64, ""),
+        ("n_dst=1001 (ragged tile)", 2708, 1001, 33, 64, 64, ""),
+        ("zero-mask rows", 500, 300, 4, 64, 64, "zero-mask rows"),
+    ]
+    worst = 0.0
+    for label, n_src, n_dst, f1, d, d_out, case in cases:
+        args = _gcn_inputs(torch, gen, m, n_src, n_dst, f1, d, d_out, case)
+        got, mean = graph_agg.graph_agg_cuda(*args, save=True)
+        plain_only = graph_agg.graph_agg_cuda(*args)
+        torch.cuda.synchronize()
+        want, want_mean = graph_agg.graph_agg_plain(*args, save=True)
+        if not (torch.isfinite(got).all() and torch.equal(got, plain_only)):
+            raise AssertionError(f"graph_agg_cuda at {label}: non-finite, or "
+                                 "save=True changed the output")
+        err = max(float((got - want).abs().max()),
+                  float((mean - want_mean).abs().max()))
+        worst = max(worst, err)
+        if err > KERNEL_ATOL:
+            raise AssertionError(
+                f"graph_agg_cuda vs plain at {label}: max abs err {err:.3e}"
+                f" > {KERNEL_ATOL:.0e}")
+        kernel = lambda: graph_agg.graph_agg_cuda(*args)
+        k_ms = _time_ms(torch, kernel)
+        save_ms = _time_ms(torch, lambda: graph_agg.graph_agg_cuda(
+            *args, save=True))
+        launch_ms = _time_ms(torch, kernel, preload=False)
+        p_ms = _time_ms(torch, lambda: graph_agg.graph_agg_plain(*args))
+        bound_ms, bound_by, nbytes, flops = _gcn_bound(torch, *args)
+        print(f"kernels: graph_agg {label}: M={m} n_src={n_src} "
+              f"n_dst={n_dst} d={d} d_out={d_out} F+1={f1} "
+              f"max_abs_err={err:.3e} kernel_ms={k_ms:.4f} "
+              f"save_ms={save_ms:.4f} launch_ms={launch_ms:.4f} "
+              f"plain_ms={p_ms:.4f} bound_us={bound_ms * 1e3:.3f} "
+              f"({bound_by}; {nbytes} B, {flops} flop) library_ms=null")
+    print(f"kernels: graph_agg worst max_abs_err {worst:.3e} <= "
+          f"{KERNEL_ATOL:.0e}; library_ms=null: no single PyTorch call "
+          "computes the masked gather-mean fused with @W (a sparse product "
+          "needs the sparse matrix built from idx/mask first, then a second "
+          "product)")
+
+
+def phase_grads(torch, ops):
+    """Card vs CPU gradients of both autograd Functions at the training
+    shapes, and the explicit backward's device time."""
+    gen = torch.Generator().manual_seed(SEED + 2)
+    for label, n_src, n_dst in (("train l0", 512, 512),
+                                ("train l2", 512, 64),
+                                ("train l3", 64, 16)):
+        h, idx, mask, w = _gcn_inputs(torch, gen, 3, n_src, n_dst, 4, 64, 64,
+                                      "")
+        h0 = torch.randn(3, n_src, 64, generator=gen).cuda()
+        b = (0.1 * torch.randn(3, 64, generator=gen)).cuda()
+        g = torch.randn(3, n_dst, 64, generator=gen).cuda()
+        ops_cases = {
+            "graph_agg": (lambda t, i, k: ops.graph_agg(t[0], i, k, t[1]),
+                          [h, w]),
+            "gcnii_layer": (lambda t, i, k: ops.gcnii_layer(
+                t[0], t[1], i, k, t[2], t[3], alpha=0.1, beta=0.25),
+                [h, h0, w, b]),
+        }
+        for name, (fn, leaves) in ops_cases.items():
+            grads = {}
+            for dev in ("cuda", "cpu"):
+                ts = [t.detach().to(dev).requires_grad_(True) for t in leaves]
+                out = fn(ts, idx.to(dev), mask.to(dev))
+                grads[dev] = [x.cpu() for x in
+                              torch.autograd.grad(out, ts, g.to(dev))]
+            errs = []
+            for a_, b_ in zip(grads["cuda"], grads["cpu"]):
+                torch.testing.assert_close(a_, b_, **GRAD_TOL)
+                errs.append(float((a_ - b_).abs().max()))
+            ts = [t.detach().requires_grad_(True) for t in leaves]
+            out = fn(ts, idx, mask)
+            bwd = lambda: torch.autograd.grad(out, ts, g, retain_graph=True)
+            b_ms = _time_ms(torch, bwd)
+            f_ms = _time_ms(torch, lambda: fn(ts, idx, mask))
+            print(f"kernels: {name} backward {label}: n_src={n_src} "
+                  f"n_dst={n_dst} d=64 card vs CPU max abs grad err "
+                  f"{max(errs):.3e} (rtol=atol={GRAD_TOL['atol']:.0e}); "
+                  f"device ms: forward with saved intermediate {f_ms:.4f}, "
+                  f"backward {b_ms:.4f}")
+
+
+class _Capture:
+    """Records the inputs of every ``ops.<name>`` call (detached clones,
+    the first ``limit``) while active, so a kernel can be timed on exactly
+    what the main path gave it. Used on a separate warm-up run, outside
+    the counted run."""
+
+    def __init__(self, ops, name, limit=None):
+        self.ops, self.name, self.limit = ops, name, limit
+        self.orig, self.calls = getattr(ops, name), []
 
     def __enter__(self):
         def recording(*args, **kw):
-            self.calls.append(([a.clone() for a in args], dict(kw)))
+            if self.limit is None or len(self.calls) < self.limit:
+                self.calls.append(([a.detach().clone() for a in args],
+                                   dict(kw)))
             return self.orig(*args, **kw)
-        self.ops.gcnii_layer = recording
+        setattr(self.ops, self.name, recording)
         return self
 
     def __exit__(self, *exc):
-        self.ops.gcnii_layer = self.orig
+        setattr(self.ops, self.name, self.orig)
 
 
 def phase_slice(torch, np, mods):
@@ -239,7 +396,7 @@ def phase_slice(torch, np, mods):
 
     # warm-up session, outside the counted run: CUDA context, library
     # handles, and the main path's kernel inputs for the result line
-    with _Capture(ops) as cap:
+    with _Capture(ops, "gcnii_layer") as cap:
         s = session("cuda")
         s.answer(q)
         s.precompute()
@@ -361,47 +518,250 @@ def _cold_breakdown(torch, np, sess, q, glasu):
               f" {e.key[:90]}")
 
 
-def phase_result(torch, graph_agg, launches, captured, n_layers):
-    """Times the kernel on the exact inputs the main path gave it: the
-    layers of one cold answer, then those of precompute()."""
-    per_launch = []
+def _train_width(mcfg, sampler, cfg):
+    return ((mcfg.n_clients, mcfg.n_layers, mcfg.hidden, mcfg.d_in,
+             mcfg.n_classes, tuple(mcfg.agg_layers), mcfg.n_local_steps),
+            (cfg.optimizer, cfg.lr, cfg.batch_size, cfg.fanout,
+             cfg.size_cap, list(sampler.layer_sizes)))
+
+
+def _cpu_vs_card(torch, mods, cfg, trainer):
+    """4 rounds from the same parameters and batches on the card and on
+    the CPU, under SGD (held at GRAD_TOL) and the preset's Adam (losses
+    held at ADAM_LOSS_TOL)."""
+    glasu, tree_map = mods["glasu"], mods["tree_map"]
+    mcfg = trainer.model_cfg
+    p0 = glasu.init_params(torch.Generator().manual_seed(SEED + 3), mcfg,
+                           "cpu")
+    sampler = mods["GlasuSampler"](trainer.data, cfg.sampler_config(),
+                                   seed=cfg.seed + 7)
+    host = mods["sample_rounds"](sampler, 4)
+    for opt_name in ("sgd", cfg.optimizer):
+        optimizer = mods["make_optimizer"](opt_name, cfg.lr)
+        step = glasu.make_multi_round_fn(mcfg, optimizer, 4)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            p = tree_map(lambda t: t.to(dev), p0)
+            p, _, losses = step(p, optimizer.init(p),
+                                mods["batch_to_device"](host, dev))
+            res[dev] = (mods["tree_leaves"](tree_map(lambda t: t.cpu(), p)),
+                        losses.cpu())
+        (pc, lc), (pp, lp) = res["cuda"], res["cpu"]
+        loss_err = float((lc - lp).abs().max())
+        param_err = max(float((a - b).abs().max()) for a, b in zip(pc, pp))
+        torch.testing.assert_close(
+            lc, lp, **(GRAD_TOL if opt_name == "sgd" else ADAM_LOSS_TOL))
+        if opt_name == "sgd":
+            for a, b in zip(pc, pp):
+                torch.testing.assert_close(a, b, **GRAD_TOL)
+        print(f"train: {cfg.name} 4 rounds card vs CPU ({opt_name}): losses "
+              f"(4 x {mcfg.n_local_steps}) max abs diff {loss_err:.3e}, "
+              f"params max abs diff {param_err:.3e}")
+
+
+def _round_breakdown(torch, mods, trainer, kernel):
+    """Where a round's time goes on the host clock (medians of 20 rounds
+    after the run): sampling, the copy to the card, the round to sync; the
+    kernel's launches in one round; one round under torch.profiler for the
+    device's busy time and idle share."""
+    backend, st = trainer.backend, trainer.state
+    params, opt_state = st.params, st.opt_state
+    samp, copy, rnd = [], [], []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        host = mods["sample_rounds"](trainer.sampler, 1)
+        t1 = time.perf_counter()
+        batch = mods["batch_to_device"](host, "cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        kernel.launches = 0
+        out = backend.run_step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        per_round = kernel.launches
+        params, opt_state = out.params, out.opt_state
+        samp.append((t1 - t0) * 1e3)
+        copy.append((t2 - t1) * 1e3)
+        rnd.append((t3 - t2) * 1e3)
+    mcfg = trainer.model_cfg
+    want = (1 + mcfg.n_local_steps) * mcfg.n_layers
+    if per_round != want:
+        raise AssertionError(f"one round launched {kernel.__name__} "
+                             f"{per_round} times, expected {want}")
+    med = statistics.median
+    print(f"train: {trainer.cfg.name} round stages (host clock, medians of "
+          f"20): sample {med(samp):.3f} ms, copy to card {med(copy):.3f} ms,"
+          f" round (joint inference + {mcfg.n_local_steps} local steps) to "
+          f"sync {med(rnd):.3f} ms; {per_round} {kernel.__name__} launches "
+          "a round")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        backend.run_step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    print(f"train: {trainer.cfg.name} profiled round: wall "
+          f"{wall_us / 1e3:.3f} ms (under the profiler), device busy "
+          f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}, "
+          f"{sum(e.count for e in events)} device activities")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"train:   device {e.self_device_time_total:9.1f} us "
+              f"x{e.count:<4d} {e.key[:90]}")
+    return dict(sample_ms=med(samp), copy_ms=med(copy), round_ms=med(rnd),
+                busy_ms=busy_us / 1e3, profiled_wall_ms=wall_us / 1e3,
+                idle_share=1 - busy_us / wall_us)
+
+
+def phase_train(torch, mods):
+    """Trains both presets through the Trainer on the card."""
+    graph_agg, ops = mods["graph_agg"], mods["ops"]
+    out = {}
+    for name, (kernel_name, other_name, min_acc) in TRAIN_PRESETS.items():
+        cfg = mods["get_preset"](name)
+        if TRAIN_ROUNDS is not None:
+            cfg = cfg.with_(rounds=TRAIN_ROUNDS)
+        op = kernel_name.replace("_cuda", "")
+        kernel = getattr(graph_agg, kernel_name)
+        other = getattr(graph_agg, other_name)
+        # warm-up run, outside the counted run: CUDA context, library
+        # handles, and the first joint inference's kernel inputs
+        warm = mods["Trainer"](cfg.with_(rounds=1, eval_every=1))
+        with _Capture(ops, op, limit=warm.model_cfg.n_layers) as cap:
+            warm.run()
+        torch.cuda.synchronize()
+
+        kernel.launches = other.launches = 0             # ---- counted run
+        trainer = mods["Trainer"](cfg)
+        t0 = time.perf_counter()
+        res = trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, other_launches = kernel.launches, other.launches  # ---- read
+
+        evals = [(e["round"], round(e["val_acc"], 4), round(e["test_acc"], 4))
+                 for e in res.history]
+        print(f"train: {name} M=3 L=4 hidden=64 d_in=478 classes=7 Q=4 "
+              f"adam lr=0.01 batch 16 layer sizes "
+              f"{trainer.sampler.layer_sizes}: {res.rounds_run} rounds in "
+              f"{wall:.3f} s ({res.rounds_run / wall:.2f} rounds/s on the "
+              f"host clock, {len(res.history)} exact evals included); test "
+              f"acc {res.test_acc:.4f} (>= {min_acc}), val acc "
+              f"{res.val_acc:.4f}, final loss {res.history[-1]['loss']:.4f},"
+              f" comm {res.comm_bytes} B; {kernel_name} launches {launches},"
+              f" {other_name} {other_launches}")
+        print(f"train: {name} evals (round, val acc, test acc): {evals}")
+        width = _train_width(trainer.model_cfg, trainer.sampler, cfg)
+        want_width = ((3, 4, 64, 478, 7, (1, 3), 4),
+                      ("adam", 0.01, 16, 3, 512, [512, 512, 512, 64, 16]))
+        if width != want_width:
+            raise AssertionError(f"{name} is not at full width: {width}")
+        if res.rounds_run != cfg.rounds:
+            raise AssertionError(f"{name} ran {res.rounds_run} rounds")
+        if res.test_acc < min_acc:
+            raise AssertionError(f"{name} test accuracy {res.test_acc:.4f} "
+                                 f"< {min_acc}")
+        if res.comm_bytes != TRAIN_COMM_BYTES:
+            raise AssertionError(f"{name} metered {res.comm_bytes} B, "
+                                 f"expected {TRAIN_COMM_BYTES}")
+        if launches < 20 * cfg.rounds or other_launches != 0:
+            raise AssertionError(
+                f"{name}: {kernel_name} launched {launches} times in "
+                f"{cfg.rounds} rounds (want >= {20 * cfg.rounds}), "
+                f"{other_name} {other_launches} times (want 0)")
+        for leaf in mods["tree_leaves"](res.params):
+            if leaf.device.type != trainer.device.type \
+                    or not torch.isfinite(leaf).all():
+                raise AssertionError(f"{name}: a trained parameter is not a "
+                                     f"finite tensor on {trainer.device}")
+        _cpu_vs_card(torch, mods, cfg, trainer)
+        stages = _round_breakdown(torch, mods, trainer, kernel)
+        out[name] = dict(kernel=op, launches=launches, captured=cap.calls,
+                         rounds=res.rounds_run, seconds=wall,
+                         test_acc=res.test_acc, **stages)
+    return out
+
+
+def _replay(torch, captured, cuda_fn, plain_fn, bound_fn):
+    """Per-launch numbers of a kernel on exactly the inputs the main path
+    gave it: max abs error, device ms, host-inclusive ms, plain ms, bound."""
+    rows = []
     for i, (args, kw) in enumerate(captured):
-        err = _compare(torch, graph_agg, args, kw)
-        if err > KERNEL_ATOL:
+        got = cuda_fn(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((got - plain_fn(*args, **kw)).abs().max())
+        if err > KERNEL_ATOL or not torch.isfinite(got).all():
             raise AssertionError(f"main-path launch {i}: max abs err "
                                  f"{err:.3e} > {KERNEL_ATOL:.0e}")
-        kernel = lambda: graph_agg.gcnii_layer_cuda(*args, **kw)
-        k_ms = _time_ms(torch, kernel)
-        launch_ms = _time_ms(torch, kernel, preload=False)
-        p_ms = _time_ms(torch, lambda: graph_agg.gcnii_layer_plain(*args, **kw))
-        bound_ms, bound_by, _, _ = _gcnii_bound(torch, *args)
-        per_launch.append(dict(
-            where="cold answer" if i < n_layers else "precompute",
-            layer=i % n_layers, n_src=args[0].shape[1],
-            n_dst=args[2].shape[1], max_abs_err=err, ms=k_ms,
-            launch_ms=launch_ms, plain_ms=p_ms, bound_ms=bound_ms,
-            bound_by=bound_by))
-    cold = per_launch[:n_layers]
-    by_bytes = sum(p["bound_ms"] for p in cold if p["bound_by"] == "bytes")
-    by_ops = sum(p["bound_ms"] for p in cold) - by_bytes
-    entry = dict(
-        name="gcnii_layer", route="cuda",
-        source="src/repro_torch/kernels/csrc/gcnii_layer.cu",
-        replaces="src/repro/kernels/graph_agg.py:256",
-        launches=launches,
-        max_abs_err=max(p["max_abs_err"] for p in per_launch),
-        ms=sum(p["ms"] for p in cold),
-        launch_ms=sum(p["launch_ms"] for p in cold),
-        plain_ms=sum(p["plain_ms"] for p in cold),
-        bound_ms=sum(p["bound_ms"] for p in cold),
-        bound_by="bytes" if by_bytes >= by_ops else "operations",
-        library_ms=None,
-        scope=f"sum over the {n_layers} launches of one 16-query cold "
-              "answer (M=3, d=64, F+1=33); ms, plain_ms: device time; "
-              "launch_ms: with the host's enqueue time; per_launch lists "
-              "every captured main-path launch",
-        per_launch=per_launch)
-    print(json.dumps({"kernels": [entry]}))
+        kernel = lambda: cuda_fn(*args, **kw)
+        bound_ms, bound_by, _, _ = bound_fn(torch, *args)
+        rows.append(dict(n_src=args[0].shape[1], n_dst=got.shape[1],
+                         max_abs_err=err, ms=_time_ms(torch, kernel),
+                         launch_ms=_time_ms(torch, kernel, preload=False),
+                         plain_ms=_time_ms(torch, lambda: plain_fn(*args,
+                                                                   **kw)),
+                         bound_ms=bound_ms, bound_by=bound_by))
+    return rows
+
+
+def _sums(rows):
+    by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+    by_ops = sum(r["bound_ms"] for r in rows) - by_bytes
+    return dict(ms=sum(r["ms"] for r in rows),
+                launch_ms=sum(r["launch_ms"] for r in rows),
+                plain_ms=sum(r["plain_ms"] for r in rows),
+                bound_ms=sum(r["bound_ms"] for r in rows),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def phase_result(torch, graph_agg, trained, serve_launches, serve_captured,
+                 n_layers):
+    """The kernels line: each kernel timed on the inputs the training path
+    gave it in one joint inference (the launches of its preset's counted
+    200-round run); GCNII also on one cold answer of the serving path."""
+    scope = (f"sum over the {n_layers} launches of one joint inference of a "
+             "training round of {preset} (M=3, d=64, F+1=4, n_src/n_dst "
+             "512/512, 512/512, 512/64, 64/16); ms, plain_ms: device time; "
+             "launch_ms: with the host's enqueue time; launches: the "
+             "preset's counted 200-round Trainer run")
+    entries = []
+    for name, fn, plain, bound, source, replaces in (
+            ("graph_agg", graph_agg.graph_agg_cuda, graph_agg.graph_agg_plain,
+             _gcn_bound, "src/repro_torch/kernels/csrc/graph_agg.cu",
+             "src/repro/kernels/graph_agg.py:103"),
+            ("gcnii_layer", graph_agg.gcnii_layer_cuda,
+             graph_agg.gcnii_layer_plain, _gcnii_bound,
+             "src/repro_torch/kernels/csrc/gcnii_layer.cu",
+             "src/repro/kernels/graph_agg.py:256")):
+        preset, run = next((p, r) for p, r in trained.items()
+                           if r["kernel"] == name)
+        rows = _replay(torch, run["captured"], fn, plain, bound)
+        entry = dict(name=name, route="cuda", source=source,
+                     replaces=replaces, launches=run["launches"],
+                     max_abs_err=max(r["max_abs_err"] for r in rows),
+                     **_sums(rows), library_ms=None,
+                     library_note="no single PyTorch call computes the "
+                                  "masked gather-mean with the fused matmul",
+                     scope=scope.format(preset=preset), per_launch=rows)
+        if name == "gcnii_layer":
+            serve_rows = _replay(torch, serve_captured, fn, plain, bound)
+            cold = _sums(serve_rows[:n_layers])
+            entry.update(
+                max_abs_err=max(entry["max_abs_err"],
+                                max(r["max_abs_err"] for r in serve_rows)),
+                serve_launches=serve_launches,
+                serve_cold_answer={k: cold[k] for k in
+                                   ("ms", "launch_ms", "plain_ms", "bound_ms",
+                                    "bound_by")},
+                serve_per_launch=serve_rows)
+        entries.append(entry)
+    print(json.dumps({"kernels": entries}))
 
 
 def main() -> int:
@@ -411,20 +771,31 @@ def main() -> int:
               "run needs an NVIDIA GPU (CUDA)", file=sys.stderr)
         return 2
     import numpy as np
-    from repro_torch.api import get_preset
+    from repro_torch.api import Trainer, get_preset
     from repro_torch.core import glasu
+    from repro_torch.graph.prefetch import sample_rounds
+    from repro_torch.graph.sampler import GlasuSampler, batch_to_device
     from repro_torch.graph.synth import make_vfl_dataset
     from repro_torch.kernels import build, graph_agg, ops
+    from repro_torch.optim.optimizers import make_optimizer
     from repro_torch.serve import InferenceSession, ServeConfig
+    from repro_torch.tree import tree_leaves, tree_map
 
     phase_device(torch)
     phase_build(build)
     phase_kernels(torch, graph_agg)
+    phase_kernels_gcn(torch, graph_agg)
+    phase_grads(torch, ops)
     mods = dict(glasu=glasu, graph_agg=graph_agg, ops=ops,
                 get_preset=get_preset, make_vfl_dataset=make_vfl_dataset,
-                InferenceSession=InferenceSession, ServeConfig=ServeConfig)
-    launches, captured = phase_slice(torch, np, mods)
-    phase_result(torch, graph_agg, launches, captured,
+                InferenceSession=InferenceSession, ServeConfig=ServeConfig,
+                Trainer=Trainer, GlasuSampler=GlasuSampler,
+                sample_rounds=sample_rounds, batch_to_device=batch_to_device,
+                make_optimizer=make_optimizer, tree_leaves=tree_leaves,
+                tree_map=tree_map)
+    serve_launches, serve_captured = phase_slice(torch, np, mods)
+    trained = phase_train(torch, mods)
+    phase_result(torch, graph_agg, trained, serve_launches, serve_captured,
                  get_preset("cora-gcnii-glasu").n_layers)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

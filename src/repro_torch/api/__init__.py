@@ -1,15 +1,19 @@
-"""Experiment configuration and the paper's preset grid.
+"""Experiment configuration, the paper's preset grid, and the trainer.
 
-    from repro_torch.api import get_preset
-    cfg = get_preset("cora-gcnii-glasu")
+    from repro_torch.api import Trainer, get_preset
+    result = Trainer(get_preset("cora-gcnii-glasu")).run()
 """
 from ..comm.compression import CompressionConfig
 from ..fed.faults import FaultConfig
 from ..serve.config import ServeConfig
+from .backends import VmappedBackend, make_backend
 from .config import ExperimentConfig, agg_layers_for_k
 from .presets import get_preset, list_presets, register_preset
+from .trainer import EarlyStopHook, EvalHook, Hook, Trainer
 
 __all__ = [
     "CompressionConfig", "FaultConfig", "ServeConfig", "ExperimentConfig",
     "agg_layers_for_k", "get_preset", "list_presets", "register_preset",
+    "Trainer", "Hook", "EvalHook", "EarlyStopHook", "VmappedBackend",
+    "make_backend",
 ]

@@ -22,13 +22,16 @@ from typing import Optional, Tuple
 
 from ..comm.compression import CompressionConfig
 from ..core.glasu import GlasuConfig
+from ..core.train import TrainConfig
 from ..fed.faults import FaultConfig
+from ..graph.sampler import SamplerConfig
+from ..optim import optimizers as opt_lib
 from ..serve.config import ServeConfig
 
 METHODS = ("glasu", "centralized", "standalone", "simulated-centralized",
            "fedbcd")
 BACKENDS = ("vmapped", "simulation", "sharded")
-OPTIMIZER_NAMES = ("sgd", "momentum", "adam", "adamw", "adafactor")
+OPTIMIZER_NAMES = opt_lib.OPTIMIZER_NAMES
 
 
 def agg_layers_for_k(n_layers: int, k: int) -> Tuple[int, ...]:
@@ -220,6 +223,22 @@ class ExperimentConfig:
         """Number of clients the *model* runs with (centralized => M=1)."""
         return 1 if self.method == "centralized" else self.n_clients
 
+    @property
+    def sampler_agg_layers(self) -> Tuple[int, ...]:
+        """Standalone still needs a shared mini-batch S[L] (Alg 2)."""
+        return self.agg_layers if self.agg_layers else (self.n_layers - 1,)
+
+    @property
+    def resolved_fanout(self) -> int:
+        """fedbcd keeps only the self loop — A(E_m) = I (§3.5)."""
+        return 0 if self.method == "fedbcd" else self.fanout
+
+    @property
+    def resolved_eval_mode(self) -> str:
+        if self.eval_mode is not None:
+            return self.eval_mode
+        return "per_client" if self.method == "standalone" else "ensemble"
+
     def glasu_config(self, data) -> GlasuConfig:
         """Bind to a dataset: derives d_in / n_classes, checks client counts,
         and refuses what the port does not run yet."""
@@ -250,6 +269,21 @@ class ExperimentConfig:
             dp_sigma=self.dp_sigma, secure_agg=self.secure_agg,
             labels_at_client=self.labels_at_client,
             use_pallas=self.use_pallas)
+
+    def sampler_config(self) -> SamplerConfig:
+        return SamplerConfig(
+            n_layers=self.n_layers, agg_layers=self.sampler_agg_layers,
+            batch_size=self.batch_size, fanout=self.resolved_fanout,
+            size_cap=self.size_cap, table_cap=self.table_cap)
+
+    def train_config(self) -> TrainConfig:
+        return TrainConfig(
+            rounds=self.rounds, lr=self.lr, optimizer=self.optimizer,
+            eval_every=self.eval_every, eval_table_cap=self.eval_table_cap,
+            seed=self.seed, eval_mode=self.resolved_eval_mode)
+
+    def make_optimizer(self) -> opt_lib.Optimizer:
+        return opt_lib.make_optimizer(self.optimizer, self.lr)
 
     # ------------------------------------------------------------- interface
     def with_(self, **kw) -> "ExperimentConfig":

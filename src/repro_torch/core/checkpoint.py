@@ -26,47 +26,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..tree import tree_leaves, tree_map, tree_unflatten
 
 # param-shaped copies each optimizer's state holds after its step counter
 # (repro.optim.optimizers: SGDState(step, None) for sgd, SGDState(step,
 # momentum) for momentum, AdamState(step, mu, nu) for adam and adamw)
 OPT_STATE_COPIES = {"sgd": 0, "momentum": 1, "adam": 2, "adamw": 2}
-
-
-def tree_leaves(tree) -> list:
-    """Leaves in ``jax.tree_util`` flatten order (sorted dict keys)."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for t in tree for x in tree_leaves(t)]
-    return [tree]
-
-
-def tree_map(fn, tree):
-    """``fn`` over every leaf, keeping the structure of ``tree``."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, t) for t in tree)
-    return fn(tree)
-
-
-def _unflatten(like, leaves):
-    it = iter(leaves)
-
-    def build(t):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
-    return build(like)
 
 
 def _bf16_from_bits(bits: np.ndarray) -> torch.Tensor:
@@ -151,7 +116,7 @@ def load_for_inference(ckpt_dir: str, step: Optional[int] = None,
             from .train import make_centralized_dataset
             data = make_centralized_dataset(data)
     mcfg = cfg.glasu_config(data)
-    like = glasu.init_params(torch.Generator().manual_seed(0), mcfg)
+    like = glasu.init_params(torch.Generator().manual_seed(0), mcfg, "cpu")
     like_leaves = tree_leaves(like)
     n_params = len(like_leaves)
     n_opt = 1 + OPT_STATE_COPIES[cfg.optimizer] * n_params
@@ -191,6 +156,6 @@ def load_for_inference(ckpt_dir: str, step: Optional[int] = None,
                 f"corrupt/mismatched checkpoint {fn}: params leaf shape "
                 f"{tuple(t.shape)} != expected {tuple(want.shape)}")
         leaves.append(t.to(dev))
-    params = _unflatten(like, leaves)
+    params = tree_unflatten(like, leaves)
     return InferenceRestore(params=params, config=cfg, step=int(step),
                             data=data)

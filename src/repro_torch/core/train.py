@@ -1,15 +1,41 @@
-"""Evaluation tables shared by exact full-graph inference and serving.
+"""Training result types and the evaluation tables.
 
-Counterpart of the table functions in ``repro.core.train``. Host numpy,
-bitwise equal to the reference for the same dataset and seed, including
-the order in which the table generator's draws are consumed. The training
-loop itself comes with the training slice of the port.
+Counterpart of ``repro.core.train``: ``TrainConfig``/``TrainResult`` (the
+loop itself is ``repro_torch.api.trainer.Trainer``) and the tables shared by
+exact full-graph inference and serving. The tables are host numpy, bitwise
+equal to the reference for the same dataset and seed, including the order
+in which the table generator's draws are consumed.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..graph.graph import VFLDataset
+
+
+@dataclass
+class TrainConfig:
+    rounds: int = 200                  # T
+    lr: float = 0.05
+    optimizer: str = "adam"
+    eval_every: int = 25
+    eval_table_cap: int = 32
+    seed: int = 0
+    eval_mode: str = "ensemble"        # 'per_client' for standalone
+
+
+@dataclass
+class TrainResult:
+    test_acc: float
+    val_acc: float
+    history: List[Dict] = field(default_factory=list)
+    comm_bytes: int = 0
+    rounds_run: int = 0
+    wall_seconds: float = 0.0
+    params: Optional[dict] = None
 
 
 def _eval_neighbor_tables(data: VFLDataset, cap: int, seed: int):

@@ -29,9 +29,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # point returns the cudaError_t of its launch as an int
 SIGNATURES = {
     "gcnii_layer": ("gcnii_layer_launch",
-                    [_P, _P, _P, _P, _P, _P, _P,        # h h0 idx mask w b out
+                    [_P, _P, _P, _P, _P, _P, _P, _P,    # h h0 idx mask w b out z
                      _I, _I, _I, _I, _I,                # m n_src n_dst f1 d
                      _F, _F, _I, _P]),                  # alpha beta device stream
+    "graph_agg": ("graph_agg_launch",
+                  [_P, _P, _P, _P, _P, _P,              # h idx mask w out mean
+                   _I, _I, _I, _I, _I, _I,              # m n_src n_dst f1 d d_out
+                   _I, _P]),                            # device stream
 }
 
 _lock = threading.Lock()

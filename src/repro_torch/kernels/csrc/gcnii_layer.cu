@@ -7,6 +7,9 @@
 //   z    = (1 - alpha) * mean + alpha * h0[idx[r,0]]      (h0 read unmasked)
 //   out  = relu((1 - beta) * z + beta * (z @ W) + b)
 //
+// When `z_out` is not null the kernel also writes z, which the backward
+// needs (dW = beta z^T g'), so the backward never re-runs the forward.
+//
 // What bounds it on this card: at the serving shapes (M = 3, n_src = n_dst =
 // 2708, d = 64, F+1 = 33) the unique device-memory bytes are ~8.4 MB
 // (h, h0, idx, mask, out: ~2.5 us at 3.35 TB/s), the gather re-reads ~69 MB
@@ -48,8 +51,9 @@ gcnii_layer_kernel(const float* __restrict__ h, const float* __restrict__ h0,
                    const int* __restrict__ idx,
                    const float* __restrict__ mask,
                    const float* __restrict__ w, const float* __restrict__ b,
-                   float* __restrict__ out, int n_src, int n_dst, int f1,
-                   int d, float alpha, float beta) {
+                   float* __restrict__ out, float* __restrict__ z_out,
+                   int n_src, int n_dst, int f1, int d, float alpha,
+                   float beta) {
   extern __shared__ float smem[];
   float* w_s = smem;          // (d, d) weights of client m
   float* z_s = smem + d * d;  // (kRows, d) z rows of this block
@@ -66,6 +70,8 @@ gcnii_layer_kernel(const float* __restrict__ h, const float* __restrict__ h0,
   const float* wm = w + static_cast<size_t>(m) * d * d;
   const float* bm = b + static_cast<size_t>(m) * d;
   float* outm = out + static_cast<size_t>(m) * n_dst * d;
+  float* zm = z_out == nullptr ? nullptr
+                               : z_out + static_cast<size_t>(m) * n_dst * d;
 
   for (int i = threadIdx.x; i < d * d; i += kThreads) w_s[i] = wm[i];
 
@@ -94,8 +100,10 @@ gcnii_layer_kernel(const float* __restrict__ h, const float* __restrict__ h0,
           s += mv * hm[static_cast<size_t>(src) * d + c];
         }
       }
-      zr[c] = (1.f - alpha) * (s / denom)
-              + alpha * h0m[static_cast<size_t>(self) * d + c];
+      const float z = (1.f - alpha) * (s / denom)
+                      + alpha * h0m[static_cast<size_t>(self) * d + c];
+      zr[c] = z;
+      if (zm != nullptr) zm[static_cast<size_t>(r) * d + c] = z;
     }
   }
   __syncthreads();
@@ -118,15 +126,16 @@ gcnii_layer_kernel(const float* __restrict__ h, const float* __restrict__ h0,
 }  // namespace
 
 // h, h0: (m, n_src, d) f32; idx: (m, n_dst, f1) i32; mask: (m, n_dst, f1)
-// f32; w: (m, d, d) f32; b: (m, d) f32; out: (m, n_dst, d) f32, all
-// contiguous on CUDA device `device`. Launches on `stream` and returns the
-// launch's cudaGetLastError() (0 on success); never synchronises. The
-// library links its own CUDA runtime, so the device is set here rather
-// than inherited from the caller's runtime.
+// f32; w: (m, d, d) f32; b: (m, d) f32; out: (m, n_dst, d) f32; z_out:
+// null or (m, n_dst, d) f32, all contiguous on CUDA device `device`.
+// Launches on `stream` and returns the launch's cudaGetLastError() (0 on
+// success); never synchronises. The library links its own CUDA runtime, so
+// the device is set here rather than inherited from the caller's runtime.
 extern "C" int gcnii_layer_launch(const float* h, const float* h0,
                                   const int* idx, const float* mask,
                                   const float* w, const float* b, float* out,
-                                  int m, int n_src, int n_dst, int f1, int d,
+                                  float* z_out, int m, int n_src, int n_dst,
+                                  int f1, int d,
                                   float alpha, float beta, int device,
                                   void* stream) {
   if (m <= 0 || n_dst <= 0 || d <= 0 || n_src <= 0 || f1 <= 0) {
@@ -145,6 +154,6 @@ extern "C" int gcnii_layer_launch(const float* h, const float* h0,
   const dim3 grid((n_dst + kRows - 1) / kRows, m);
   gcnii_layer_kernel<<<grid, kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-      h, h0, idx, mask, w, b, out, n_src, n_dst, f1, d, alpha, beta);
+      h, h0, idx, mask, w, b, out, z_out, n_src, n_dst, f1, d, alpha, beta);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,15 +5,19 @@ client stack in one launch (the client is a grid dimension where the
 reference ``jax.vmap``s the Pallas call) and sits beside a plain PyTorch
 version of the same client-stacked function:
 
+    GCN    mean = masked-mean_f h[idx];  mean @ W       (bias, relu outside)
     GCNII  z = (1-a)·mean + a·H0[self];  relu((1-b)·z + b·(z @ W) + b)
 
-``gcnii_layer_cuda`` launches ``csrc/gcnii_layer.cu`` and accepts only what
-that kernel reads correctly: contiguous float32/int32 CUDA tensors of one
-device. It raises on anything else and on a failed launch; it never falls
-back to the plain version. ``gcnii_layer_cuda.launches`` counts its
-launches, so a run can show that a path went through the kernel.
+``graph_agg_cuda`` and ``gcnii_layer_cuda`` launch ``csrc/graph_agg.cu`` and
+``csrc/gcnii_layer.cu`` and accept only what those kernels read correctly:
+contiguous float32/int32 CUDA tensors of one device. They raise on anything
+else and on a failed launch; they never fall back to the plain version.
+With ``save=True`` each also returns the intermediate its backward needs
+(the masked mean for GCN, z for GCNII), written by the kernel itself. Each
+``.launches`` counts its wrapper's launches, so a run can show that a path
+went through the kernel.
 
-The GCN, GAT and CSR kernels of the reference are not ported yet.
+The GAT and CSR kernels of the reference are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,82 +26,156 @@ import torch
 from . import build
 
 
-def gcnii_layer_plain(h, h0, idx, mask, w, b, *, alpha: float, beta: float):
+def _masked_mean(h, idx, mask):
+    """(M, n_dst, d) masked mean of the client-stacked gather h[m, idx]."""
+    m = h.shape[0]
+    rows = torch.arange(m, device=h.device)[:, None, None]
+    g = h[rows, idx.long()]                             # (M, n_dst, F+1, d)
+    s = torch.sum(g * mask[..., None], dim=2)
+    denom = torch.clamp(torch.sum(mask, dim=2, keepdim=True), min=1.0)
+    return s / denom
+
+
+def graph_agg_plain(h, idx, mask, w, *, save: bool = False):
+    """Client-stacked GCN aggregation in plain PyTorch.
+
+    h: (M, n_src, d); idx/mask: (M, n_dst, F+1); w: (M, d, d_out) ->
+    (M, n_dst, d_out), or ``(out, mean)`` with ``save``. Per client this is
+    exactly ``ref.graph_agg_ref``.
+    """
+    mean = _masked_mean(h, idx, mask)
+    out = torch.bmm(mean, w)
+    return (out, mean) if save else out
+
+
+def gcnii_layer_plain(h, h0, idx, mask, w, b, *, alpha: float, beta: float,
+                      save: bool = False):
     """Client-stacked GCNII sub-layer in plain PyTorch.
 
     h/h0: (M, n_src, d); idx/mask: (M, n_dst, F+1), self at column 0;
-    w: (M, d, d); b: (M, d) -> (M, n_dst, d). Per client this is exactly
-    ``ref.gcnii_layer_ref``.
+    w: (M, d, d); b: (M, d) -> (M, n_dst, d), or ``(out, z)`` with
+    ``save``. Per client this is exactly ``ref.gcnii_layer_ref``.
     """
-    m = h.shape[0]
-    idx = idx.long()
-    rows = torch.arange(m, device=h.device)[:, None, None]
-    g = h[rows, idx]                                    # (M, n_dst, F+1, d)
-    s = torch.sum(g * mask[..., None], dim=2)
-    denom = torch.clamp(torch.sum(mask, dim=2, keepdim=True), min=1.0)
-    z = (1.0 - alpha) * (s / denom) + alpha * h0[rows[:, :, 0], idx[:, :, 0]]
-    return torch.relu((1.0 - beta) * z + beta * torch.bmm(z, w) + b[:, None, :])
+    rows = torch.arange(h.shape[0], device=h.device)[:, None]
+    z = (1.0 - alpha) * _masked_mean(h, idx, mask) \
+        + alpha * h0[rows, idx[:, :, 0].long()]
+    out = torch.relu((1.0 - beta) * z + beta * torch.bmm(z, w)
+                     + b[:, None, :])
+    return (out, z) if save else out
 
 
-def _check(name, t, dtype, shape, device):
+def _check(fn, name, t, dtype, shape, device):
     if not isinstance(t, torch.Tensor):
-        raise TypeError(f"gcnii_layer_cuda: {name} must be a tensor")
+        raise TypeError(f"{fn}: {name} must be a tensor")
     if t.device != device:
-        raise ValueError(f"gcnii_layer_cuda: {name} is on {t.device}, "
-                         f"expected {device}")
+        raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"gcnii_layer_cuda: {name} is {t.dtype}, "
-                        f"expected {dtype}")
+        raise TypeError(f"{fn}: {name} is {t.dtype}, expected {dtype}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"gcnii_layer_cuda: {name} has shape "
-                         f"{tuple(t.shape)}, expected {shape}")
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {shape}")
     if not t.is_contiguous():
         raise ValueError(
-            f"gcnii_layer_cuda: {name} is not contiguous (strides "
-            f"{t.stride()}); materialize it first (e.g. a broadcast "
-            "aggregate has stride 0 on the client axis)")
+            f"{fn}: {name} is not contiguous (strides {t.stride()}); "
+            "materialize it first (e.g. a broadcast aggregate has stride 0 "
+            "on the client axis)")
 
 
-def gcnii_layer_cuda(h, h0, idx, mask, w, b, *, alpha: float, beta: float):
+def _cuda_stack(fn, h, idx):
+    """(m, n_src, d, n_dst, f1, device) of a client-stacked call; raises
+    unless h is a CUDA tensor and both are rank 3."""
+    if not isinstance(h, torch.Tensor) or h.device.type != "cuda":
+        plain = fn.replace("_cuda", "_plain")
+        raise ValueError(f"{fn}: h must be a CUDA tensor (the plain version "
+                         f"is {plain})")
+    if h.dim() != 3 or idx.dim() != 3:
+        raise ValueError(f"{fn}: h must be (M, n_src, d) and idx "
+                         "(M, n_dst, F+1)")
+    m, n_src, d = h.shape
+    return m, n_src, d, idx.shape[1], idx.shape[2], h.device
+
+
+def _launch(fn, err, what):
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with cudaError {err} "
+                           f"({what})")
+
+
+def _device_index(dev):
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def graph_agg_cuda(h, idx, mask, w, *, save: bool = False):
+    """Client-stacked GCN aggregation on the hand-written Hopper kernel.
+
+    Same contract as ``graph_agg_plain``; every tensor must be contiguous
+    on one CUDA device (h, mask, w float32; idx int32). Outputs are
+    allocated here and the kernel runs on the current stream.
+    """
+    fn = "graph_agg_cuda"
+    m, n_src, d, n_dst, f1, dev = _cuda_stack(fn, h, idx)
+    if w.dim() != 3:
+        raise ValueError(f"{fn}: w must be (M, d, d_out)")
+    d_out = w.shape[2]
+    _check(fn, "h", h, torch.float32, (m, n_src, d), dev)
+    _check(fn, "idx", idx, torch.int32, (m, n_dst, f1), dev)
+    _check(fn, "mask", mask, torch.float32, (m, n_dst, f1), dev)
+    _check(fn, "w", w, torch.float32, (m, d, d_out), dev)
+    out = torch.empty((m, n_dst, d_out), dtype=torch.float32, device=dev)
+    mean = torch.empty((m, n_dst, d), dtype=torch.float32, device=dev) \
+        if save else None
+    if out.numel() == 0:
+        return (out, mean) if save else out
+    if n_src == 0 or f1 == 0 or d == 0:
+        raise ValueError(f"{fn}: empty source set, fanout or width")
+    lib = build.load("graph_agg")
+    _launch(fn, lib.graph_agg_launch(
+        h.data_ptr(), idx.data_ptr(), mask.data_ptr(), w.data_ptr(),
+        out.data_ptr(), mean.data_ptr() if save else None,
+        m, n_src, n_dst, f1, d, d_out, _device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream),
+        f"M={m}, n_src={n_src}, n_dst={n_dst}, F+1={f1}, d={d}, "
+        f"d_out={d_out}")
+    graph_agg_cuda.launches += 1
+    return (out, mean) if save else out
+
+
+graph_agg_cuda.launches = 0
+
+
+def gcnii_layer_cuda(h, h0, idx, mask, w, b, *, alpha: float, beta: float,
+                     save: bool = False):
     """Client-stacked GCNII sub-layer on the hand-written Hopper kernel.
 
     Same contract as ``gcnii_layer_plain``; every tensor must be contiguous
-    on one CUDA device (h, h0, mask, w, b float32; idx int32). The output
-    is allocated here and the kernel runs on the current stream.
+    on one CUDA device (h, h0, mask, w, b float32; idx int32). Outputs are
+    allocated here and the kernel runs on the current stream.
     """
-    if not isinstance(h, torch.Tensor) or h.device.type != "cuda":
-        raise ValueError("gcnii_layer_cuda: h must be a CUDA tensor "
-                         "(the plain version is gcnii_layer_plain)")
-    if h.dim() != 3 or idx.dim() != 3:
-        raise ValueError("gcnii_layer_cuda: h must be (M, n_src, d) and idx "
-                         "(M, n_dst, F+1)")
-    m, n_src, d = h.shape
-    n_dst, f1 = idx.shape[1], idx.shape[2]
-    dev = h.device
-    _check("h", h, torch.float32, (m, n_src, d), dev)
-    _check("h0", h0, torch.float32, (m, n_src, d), dev)
-    _check("idx", idx, torch.int32, (m, n_dst, f1), dev)
-    _check("mask", mask, torch.float32, (m, n_dst, f1), dev)
-    _check("w", w, torch.float32, (m, d, d), dev)
-    _check("b", b, torch.float32, (m, d), dev)
+    fn = "gcnii_layer_cuda"
+    m, n_src, d, n_dst, f1, dev = _cuda_stack(fn, h, idx)
+    _check(fn, "h", h, torch.float32, (m, n_src, d), dev)
+    _check(fn, "h0", h0, torch.float32, (m, n_src, d), dev)
+    _check(fn, "idx", idx, torch.int32, (m, n_dst, f1), dev)
+    _check(fn, "mask", mask, torch.float32, (m, n_dst, f1), dev)
+    _check(fn, "w", w, torch.float32, (m, d, d), dev)
+    _check(fn, "b", b, torch.float32, (m, d), dev)
     out = torch.empty((m, n_dst, d), dtype=torch.float32, device=dev)
+    z = torch.empty((m, n_dst, d), dtype=torch.float32, device=dev) \
+        if save else None
     if out.numel() == 0:
-        return out
+        return (out, z) if save else out
     if n_src == 0 or f1 == 0:
-        raise ValueError("gcnii_layer_cuda: empty source set or fanout")
+        raise ValueError(f"{fn}: empty source set or fanout")
     lib = build.load("gcnii_layer")
-    err = lib.gcnii_layer_launch(
+    _launch(fn, lib.gcnii_layer_launch(
         h.data_ptr(), h0.data_ptr(), idx.data_ptr(), mask.data_ptr(),
         w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        z.data_ptr() if save else None,
         m, n_src, n_dst, f1, d, float(alpha), float(beta),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"gcnii_layer_cuda: launch failed with "
-                           f"cudaError {err} (M={m}, n_src={n_src}, "
-                           f"n_dst={n_dst}, F+1={f1}, d={d})")
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream),
+        f"M={m}, n_src={n_src}, n_dst={n_dst}, F+1={f1}, d={d}")
     gcnii_layer_cuda.launches += 1
-    return out
+    return (out, z) if save else out
 
 
 gcnii_layer_cuda.launches = 0

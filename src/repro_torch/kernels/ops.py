@@ -1,31 +1,164 @@
-"""Public entry points for the port's kernels.
+"""Public entry points for the port's kernels, differentiable.
 
-A CUDA tensor launches the hand-written kernel; a CPU tensor takes the
-plain PyTorch version. Nothing else: there is no fallback from one to the
-other. Forward only for now: on CUDA an input that requires grad while
-autograd is on raises, since the ``torch.autograd.Function`` whose backward
-differentiates the plain version comes with the training slice.
+Counterpart of ``repro.kernels.ops``. A CUDA tensor launches the
+hand-written kernel; a CPU tensor takes the plain PyTorch version. Nothing
+else: there is no fallback from one to the other.
+
+GLASU trains through the client sub-layers (Alg 4's LocalUpdate), so each
+op is a ``torch.autograd.Function``. Its forward is the kernel (or the plain
+version on the CPU); when a gradient is needed the forward also writes the
+intermediate the backward needs (the masked mean for GCN, z for GCNII), so
+the backward never re-runs a forward. The backward is one explicit
+function per op, the same code on both devices: the VJP of the oracle
+(``ref.graph_agg_ref``, ``ref.gcnii_layer_ref``), which the reference takes
+with ``jax.vjp`` in XLA outside any Pallas kernel. Its products are
+``torch.bmm`` and the gather's transpose is an accumulating ``index_put_``,
+which adds every duplicate source and scales by the mask (masked slots add
+zero). On CUDA that accumulation sorts the indices instead of using
+atomics, so a run on the card is reproducible. ``idx`` and ``mask`` get no
+gradient.
 """
 from __future__ import annotations
 
 import torch
 
-from .graph_agg import gcnii_layer_cuda, gcnii_layer_plain
+from .graph_agg import (gcnii_layer_cuda, gcnii_layer_plain, graph_agg_cuda,
+                        graph_agg_plain)
+
+# Source-set size from which the reference dispatches graph_agg to its CSR
+# segment-sum kernel (repro.kernels.ops). That kernel is not ported: on
+# CUDA such calls raise instead of running the dense kernel.
+CSR_DISPATCH_MIN_SRC = 16384
+
+
+def _device(name, h):
+    kind = h.device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: no kernel for device {h.device}")
+    return kind
+
+
+def _gather_transpose(n_src, idx, coef, g):
+    """Transpose of the client-stacked gather: ``dh[m, idx[m, r, f]] +=
+    coef[m, r, f] * g[m, r]`` over every (r, f), duplicates added.
+    idx/coef: (M, n_dst, F+1); g: (M, n_dst, d) -> (M, n_src, d)."""
+    m, _, d = g.shape
+    base = torch.arange(m, device=g.device)[:, None, None] * n_src
+    flat = (idx.long() + base).reshape(-1)
+    contrib = (coef[..., None] * g[:, :, None, :]).reshape(-1, d)
+    dh = torch.zeros(m * n_src, d, dtype=g.dtype, device=g.device)
+    dh.index_put_((flat,), contrib, accumulate=True)
+    return dh.view(m, n_src, d)
+
+
+def _inv_denom(mask):
+    return mask / torch.clamp(torch.sum(mask, dim=2, keepdim=True), min=1.0)
+
+
+# ---------------------------------------------------------------------- GCN
+def graph_agg_backward(h, idx, mask, w, mean, g, need_h=True, need_w=True):
+    """VJP of ``graph_agg`` at (h, idx, mask, w) with the saved masked mean:
+    ``(dh, dw)`` (None where not needed)."""
+    dh = dw = None
+    if need_h:
+        dh = _gather_transpose(h.shape[1], idx, _inv_denom(mask),
+                               torch.bmm(g, w.transpose(1, 2)))
+    if need_w:
+        dw = torch.bmm(mean.transpose(1, 2), g)
+    return dh, dw
+
+
+class _GraphAgg(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, idx, mask, w):
+        fwd = graph_agg_cuda if h.device.type == "cuda" else graph_agg_plain
+        out, mean = fwd(h, idx, mask, w, save=True)
+        ctx.save_for_backward(h, idx, mask, w, mean)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, idx, mask, w, mean = ctx.saved_tensors
+        dh, dw = graph_agg_backward(h, idx, mask, w, mean, g.contiguous(),
+                                    ctx.needs_input_grad[0],
+                                    ctx.needs_input_grad[3])
+        return dh, None, None, dw
+
+
+def graph_agg(h, idx, mask, w):
+    """Masked-mean neighbor gather fused with the weight matmul (GCN core),
+    over the client stack. h: (M, n_src, d); idx/mask: (M, n_dst, F+1);
+    w: (M, d, d_out) -> (M, n_dst, d_out). Differentiable in h and w."""
+    kind = _device("graph_agg", h)
+    if kind == "cuda" and h.shape[1] >= CSR_DISPATCH_MIN_SRC:
+        raise NotImplementedError(
+            f"graph_agg: n_src = {h.shape[1]} >= {CSR_DISPATCH_MIN_SRC} takes "
+            "the reference's CSR segment-sum path (CSR kernel not ported "
+            "yet)")
+    if torch.is_grad_enabled() and (h.requires_grad or w.requires_grad):
+        return _GraphAgg.apply(h, idx, mask, w)
+    if kind == "cuda":
+        return graph_agg_cuda(h, idx, mask, w)
+    return graph_agg_plain(h, idx, mask, w)
+
+
+# -------------------------------------------------------------------- GCNII
+def gcnii_layer_backward(h, h0, idx, mask, w, z, out, g, alpha, beta,
+                         needs=(True, True, True, True)):
+    """VJP of ``gcnii_layer`` with the saved z and output: ``(dh, dh0, dw,
+    db)`` for ``needs`` = which of (h, h0, w, b) need one (None elsewhere).
+    h0 is read unmasked at the self column, so dh0 takes alpha·dz at
+    idx[:, :, 0] even where mask[:, :, 0] = 0."""
+    need_h, need_h0, need_w, need_b = needs
+    gp = g * (out > 0).to(g.dtype)                    # through the relu
+    dh = dh0 = dw = db = None
+    if need_b:
+        db = torch.sum(gp, dim=1)
+    if need_w:
+        dw = beta * torch.bmm(z.transpose(1, 2), gp)
+    if need_h or need_h0:
+        dz = (1.0 - beta) * gp + beta * torch.bmm(gp, w.transpose(1, 2))
+        if need_h:
+            dh = _gather_transpose(h.shape[1], idx,
+                                   (1.0 - alpha) * _inv_denom(mask), dz)
+        if need_h0:
+            dh0 = _gather_transpose(h0.shape[1], idx[:, :, :1],
+                                    torch.full_like(mask[:, :, :1], alpha),
+                                    dz)
+    return dh, dh0, dw, db
+
+
+class _GcniiLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, h0, idx, mask, w, b, alpha, beta):
+        fwd = gcnii_layer_cuda if h.device.type == "cuda" \
+            else gcnii_layer_plain
+        out, z = fwd(h, h0, idx, mask, w, b, alpha=alpha, beta=beta,
+                     save=True)
+        ctx.save_for_backward(h, h0, idx, mask, w, z, out)
+        ctx.alpha, ctx.beta = alpha, beta
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, h0, idx, mask, w, z, out = ctx.saved_tensors
+        n = ctx.needs_input_grad
+        dh, dh0, dw, db = gcnii_layer_backward(
+            h, h0, idx, mask, w, z, out, g.contiguous(), ctx.alpha, ctx.beta,
+            (n[0], n[1], n[4], n[5]))
+        return dh, dh0, None, None, dw, db, None, None
 
 
 def gcnii_layer(h, h0, idx, mask, w, b, *, alpha: float, beta: float):
     """Fused GCNII sub-layer over the client stack: gather-mean + initial
     residual + identity map. h/h0: (M, n_src, d); idx/mask: (M, n_dst,
-    F+1); w: (M, d, d); b: (M, d) -> (M, n_dst, d)."""
-    if h.device.type == "cuda":
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (h, h0, mask, w, b)):
-            raise NotImplementedError(
-                "gcnii_layer on CUDA is forward only (its backward is not "
-                "ported yet); call it under torch.no_grad()")
+    F+1); w: (M, d, d); b: (M, d) -> (M, n_dst, d). Differentiable in h,
+    h0, w and b."""
+    kind = _device("gcnii_layer", h)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (h, h0, w, b)):
+        return _GcniiLayer.apply(h, h0, idx, mask, w, b, alpha, beta)
+    if kind == "cuda":
         return gcnii_layer_cuda(h, h0, idx, mask, w, b, alpha=alpha,
                                 beta=beta)
-    if h.device.type == "cpu":
-        return gcnii_layer_plain(h, h0, idx, mask, w, b, alpha=alpha,
-                                 beta=beta)
-    raise ValueError(f"gcnii_layer: no kernel for device {h.device}")
+    return gcnii_layer_plain(h, h0, idx, mask, w, b, alpha=alpha, beta=beta)

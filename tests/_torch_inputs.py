@@ -1,0 +1,54 @@
+"""Seeded numpy inputs shared by the port's kernel tests (CPU and card).
+
+Imports neither jax nor ``repro``, so the card rows can run on a machine
+without the reference package.
+"""
+import numpy as np
+
+
+def gcnii_inputs(seed, m, n_src, n_dst, f1, d, case="plain"):
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(m, n_src, d)).astype(np.float32)
+    h0 = rng.normal(size=(m, n_src, d)).astype(np.float32)
+    idx = rng.integers(0, n_src, size=(m, n_dst, f1)).astype(np.int32)
+    mask = (rng.random((m, n_dst, f1)) < 0.8).astype(np.float32)
+    mask[:, :, 0] = 1.0                      # self column, as the plans set it
+    if case == "ragged":
+        mask[:, ::3, :] = 0.0                # zero-degree rows
+        mask[:, 1::3, 0] = 0.0               # mask[:, 0] = 0: h0 still read
+    w = (rng.normal(size=(m, d, d)) / np.sqrt(d)).astype(np.float32)
+    b = rng.normal(size=(m, d)).astype(np.float32)
+    return h, h0, idx, mask, w, b
+
+
+GCNII_CASES = [
+    # m, n_src, n_dst, f1, d, case, alpha, beta
+    (3, 300, 130, 4, 64, "plain", 0.1, 0.25),     # n_dst % 128 != 0
+    (2, 80, 1, 6, 24, "plain", 0.3, 0.125),       # n_dst = 1, d = 24
+    (3, 90, 77, 9, 24, "ragged", 0.2, 0.5),       # zero rows, mask[:, 0] = 0
+    (3, 2708, 40, 33, 64, "plain", 0.1, 0.5 / 3),  # cora's source set, W = 33
+]
+
+
+def gcn_inputs(seed, m, n_src, n_dst, f1, d, d_out, ragged=False):
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(m, n_src, d)).astype(np.float32)
+    idx = rng.integers(0, n_src, size=(m, n_dst, f1)).astype(np.int32)
+    idx[:, :, 1] = idx[:, :, 2]              # repeated sources in a fanout
+    mask = (rng.random((m, n_dst, f1)) < 0.75).astype(np.float32)
+    if ragged:
+        mask[:, ::3, :] = 0.0                # zero-degree rows
+    w = (rng.normal(size=(m, d, d_out)) / np.sqrt(d)).astype(np.float32)
+    return h, idx, mask, w
+
+
+GCN_CASES = [
+    # m, n_src, n_dst, f1, d, d_out, ragged
+    (3, 200, 130, 4, 64, 64, True),          # n_dst % 128 != 0, zero rows
+    (3, 150, 77, 4, 192, 64, False),         # concat width 192 -> 64
+    (2, 40, 1, 3, 24, 8, True),              # n_dst = 1
+]
+
+
+def cotangent(seed, shape):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)

@@ -1,0 +1,165 @@
+"""The port's kernels on the card: rows that need an NVIDIA GPU.
+
+Every row carries the ``cuda`` marker and skips where
+``torch.cuda.is_available()`` is false. The file imports neither jax nor
+``repro``, so on the machine with the card the rows run with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+The hand-written kernels are held against their plain versions on the same
+inputs at max abs error 1e-5 (fp32, fanout sums in another order), and
+gradients and training rounds on the card against the CPU's at
+``CARD_TOL``: cuBLAS and the CPU's BLAS sum the backward's products (d·n_dst
+terms for dW) in another order.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.api import ExperimentConfig
+from repro_torch.core import glasu
+from repro_torch.graph.prefetch import sample_rounds
+from repro_torch.graph.sampler import GlasuSampler, batch_to_device
+from repro_torch.graph.synth import make_vfl_dataset
+from repro_torch.kernels import graph_agg, ops
+from repro_torch.tree import tree_leaves, tree_map
+
+from _torch_inputs import (GCN_CASES, GCNII_CASES, cotangent, gcn_inputs,
+                           gcnii_inputs)
+
+CARD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the hand-written kernel runs only on "
+                    "the card (chip_smoke.py drives it there)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n_src,n_dst,f1,d,case,alpha,beta", GCNII_CASES)
+def test_gcnii_cuda_kernel_matches_plain(cuda_device, m, n_src, n_dst, f1, d,
+                                         case, alpha, beta):
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in gcnii_inputs(8, m, n_src, n_dst, f1, d, case)]
+    before = graph_agg.gcnii_layer_cuda.launches
+    got = graph_agg.gcnii_layer_cuda(*args, alpha=alpha, beta=beta)
+    torch.cuda.synchronize()
+    assert graph_agg.gcnii_layer_cuda.launches == before + 1
+    want = graph_agg.gcnii_layer_plain(*args, alpha=alpha, beta=beta)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_gcnii_cuda_wrapper_rejects_strided_input(cuda_device):
+    h, h0, idx, mask, w, b = [torch.from_numpy(x).to(cuda_device)
+                              for x in gcnii_inputs(9, 3, 40, 8, 4, 16)]
+    broadcast = h[:1].expand(3, -1, -1)          # stride 0 on the client axis
+    with pytest.raises(ValueError, match="not contiguous"):
+        graph_agg.gcnii_layer_cuda(broadcast, h0, idx, mask, w, b,
+                                   alpha=0.1, beta=0.5)
+    with pytest.raises(TypeError, match="int32"):
+        graph_agg.gcnii_layer_cuda(h, h0, idx.long(), mask, w, b,
+                                   alpha=0.1, beta=0.5)
+    w.requires_grad_(True)
+    before = graph_agg.gcnii_layer_cuda.launches
+    out = ops.gcnii_layer(h, h0, idx, mask, w, b, alpha=0.1, beta=0.5)
+    (dw,) = torch.autograd.grad(out.sum(), w)
+    assert graph_agg.gcnii_layer_cuda.launches == before + 1
+    cpu_w = w.detach().cpu().requires_grad_(True)
+    want = ops.gcnii_layer(*(t.cpu() for t in (h, h0, idx, mask)), cpu_w,
+                           b.cpu(), alpha=0.1, beta=0.5)
+    (want_dw,) = torch.autograd.grad(want.sum(), cpu_w)
+    torch.testing.assert_close(dw.cpu(), want_dw, **CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n_src,n_dst,f1,d,d_out,ragged", GCN_CASES)
+def test_graph_agg_cuda_kernel_matches_plain(cuda_device, m, n_src, n_dst,
+                                             f1, d, d_out, ragged):
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in gcn_inputs(8, m, n_src, n_dst, f1, d, d_out, ragged)]
+    before = graph_agg.graph_agg_cuda.launches
+    got, mean = graph_agg.graph_agg_cuda(*args, save=True)
+    torch.cuda.synchronize()
+    assert graph_agg.graph_agg_cuda.launches == before + 1
+    want, want_mean = graph_agg.graph_agg_plain(*args, save=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    torch.testing.assert_close(mean, want_mean, rtol=0, atol=1e-5)
+    with pytest.raises(TypeError, match="int32"):
+        graph_agg.graph_agg_cuda(args[0], args[1].long(), *args[2:])
+
+
+@pytest.mark.cuda
+def test_card_gradients_match_cpu(cuda_device):
+    h, idx, mask, w = gcn_inputs(9, 3, 200, 130, 4, 64, 64, True)
+    g = torch.from_numpy(cotangent(10, (3, 130, 64)))
+
+    def gcn_grads(dev):
+        th, tw = (torch.from_numpy(x).to(dev).requires_grad_(True)
+                  for x in (h, w))
+        out = ops.graph_agg(th, torch.from_numpy(idx).to(dev),
+                            torch.from_numpy(mask).to(dev), tw)
+        return [x.cpu() for x in torch.autograd.grad(out, (th, tw), g.to(dev))]
+
+    for a, b in zip(gcn_grads(cuda_device), gcn_grads("cpu")):
+        torch.testing.assert_close(a, b, **CARD_TOL)
+    x = gcnii_inputs(11, 3, 200, 130, 4, 64, "ragged")
+
+    def gcnii_grads(dev):
+        leaves = [torch.from_numpy(x[i]).to(dev).requires_grad_(True)
+                  for i in (0, 1, 4, 5)]
+        out = ops.gcnii_layer(leaves[0], leaves[1],
+                              torch.from_numpy(x[2]).to(dev),
+                              torch.from_numpy(x[3]).to(dev), leaves[2],
+                              leaves[3], alpha=0.1, beta=0.25)
+        return [t.cpu() for t in torch.autograd.grad(out, leaves, g.to(dev))]
+
+    for a, b in zip(gcnii_grads(cuda_device), gcnii_grads("cpu")):
+        torch.testing.assert_close(a, b, **CARD_TOL)
+
+
+@pytest.mark.cuda
+def test_graph_agg_csr_size_raises_on_cuda(cuda_device, monkeypatch):
+    monkeypatch.setattr(ops, "CSR_DISPATCH_MIN_SRC", 8)
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in gcn_inputs(12, 1, 10, 4, 3, 4, 4)]
+    before = graph_agg.graph_agg_cuda.launches
+    with pytest.raises(NotImplementedError, match="CSR kernel not ported"):
+        ops.graph_agg(*args)
+    assert graph_agg.graph_agg_cuda.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backbone", ["gcn", "gcnii"])
+def test_training_rounds_on_card_match_cpu(cuda_device, backbone):
+    """Two SGD rounds (Q = 2) from the same parameters and batches on the
+    card and on the CPU; the card's rounds go through the kernels."""
+    cfg = ExperimentConfig(name="card-rounds", dataset="tiny",
+                           backbone=backbone, hidden=16, batch_size=8,
+                           size_cap=96, n_local_steps=2, optimizer="sgd",
+                           lr=0.05)
+    data = make_vfl_dataset("tiny")
+    mcfg = cfg.glasu_config(data)
+    host = sample_rounds(GlasuSampler(data, cfg.sampler_config(), seed=0), 2)
+    p0 = glasu.init_params(torch.Generator().manual_seed(0), mcfg, "cpu")
+    opt = cfg.make_optimizer()
+    step = glasu.make_multi_round_fn(mcfg, opt, 2)
+    kernel = graph_agg.graph_agg_cuda if backbone == "gcn" \
+        else graph_agg.gcnii_layer_cuda
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        before = kernel.launches
+        p = tree_map(lambda t: t.to(dev), p0)
+        p, _, losses = step(p, opt.init(p), batch_to_device(host, dev))
+        out[dev.type] = (tree_leaves(tree_map(lambda t: t.cpu(), p)),
+                         losses.cpu(), kernel.launches - before)
+    (pc, lc, launches), (pp, lp, none) = out["cuda"], out["cpu"]
+    assert launches == 2 * (1 + 2) * mcfg.n_layers and none == 0
+    torch.testing.assert_close(lc, lp, **CARD_TOL)
+    for a, b in zip(pc, pp):
+        torch.testing.assert_close(a, b, **CARD_TOL)
+    assert np.isfinite(lc.numpy()).all()

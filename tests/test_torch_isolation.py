@@ -19,8 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import ExperimentConfig
-from repro_torch.core import checkpoint
+from repro_torch.api import ExperimentConfig, Trainer, make_backend
+from repro_torch.core import checkpoint, glasu
 from repro_torch.device import resolve_device
 from repro_torch.serve import InferenceSession
 
@@ -94,6 +94,28 @@ def test_default_device_is_cuda_and_raises_without_it():
     with pytest.raises(RuntimeError, match="is_available"):
         InferenceSession(params, ExperimentConfig(dataset="tiny"))
     assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="is_available"):
+        Trainer(ExperimentConfig(dataset="tiny"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        glasu.init_params(torch.Generator().manual_seed(0),
+                          glasu.GlasuConfig())
+
+
+def test_unported_training_options_raise():
+    tiny = dict(dataset="tiny", hidden=8, batch_size=8, size_cap=96)
+    for name in ("simulation", "sharded"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            make_backend(name)
+    with pytest.raises(ValueError, match="unknown backend"):
+        make_backend("mpi")
+    with pytest.raises(NotImplementedError, match="checkpoint saving"):
+        Trainer(ExperimentConfig(ckpt_dir="ckpt", **tiny), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        Trainer(ExperimentConfig(backend="sharded", **tiny), device="cpu")
+    trainer = Trainer(ExperimentConfig(rounds=1, eval_every=1, **tiny),
+                      device="cpu")
+    assert trainer.device == torch.device("cpu")
+    assert trainer.run().params["inp"]["W"].device == torch.device("cpu")
 
 
 def _run_smoke(cwd):

@@ -1,11 +1,13 @@
-"""Port parity: the GCNII layer and the backbone oracles against JAX.
+"""Port parity: the GCN and GCNII layers and the backbone oracles against JAX.
 
-The same numpy inputs go through ``repro``'s Pallas kernel (interpret mode
-on the CPU, as ``tests/test_kernels.py`` runs it) and its jnp oracles, and
-through ``repro_torch``'s plain versions. Tolerances are the reference's
-own kernel tolerances (rtol = atol = 2e-5; 3e-5 for GAT). The rows marked
-``cuda`` hold the hand-written kernel against its plain version and skip
-where there is no card.
+The same numpy inputs go through ``repro``'s Pallas kernels (interpret mode
+on the CPU, as ``tests/test_kernels.py`` runs them) and its jnp oracles, and
+through ``repro_torch``'s plain versions; the gradients of the port's
+autograd Functions go against ``jax.vjp`` of the oracles (what the
+reference's ``custom_vjp`` backward computes) and through
+``torch.autograd.gradcheck`` in float64. Tolerances are the reference's own
+kernel tolerances (rtol = atol = 2e-5; 3e-5 for GAT). The rows that need
+the card live in ``tests/test_torch_cuda.py``, which imports no jax.
 """
 import jax
 import jax.numpy as jnp
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import graph_agg as ref_graph_agg
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as jref
 from repro.models import gnn as jgnn
@@ -21,38 +24,17 @@ from repro_torch.kernels import graph_agg, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import gnn as tgnn
 
+from _torch_inputs import (GCN_CASES, GCNII_CASES, cotangent, gcn_inputs,
+                           gcnii_inputs)
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 GAT_TOL = dict(rtol=3e-5, atol=3e-5)
-
-
-def _gcnii_inputs(seed, m, n_src, n_dst, f1, d, case="plain"):
-    rng = np.random.default_rng(seed)
-    h = rng.normal(size=(m, n_src, d)).astype(np.float32)
-    h0 = rng.normal(size=(m, n_src, d)).astype(np.float32)
-    idx = rng.integers(0, n_src, size=(m, n_dst, f1)).astype(np.int32)
-    mask = (rng.random((m, n_dst, f1)) < 0.8).astype(np.float32)
-    mask[:, :, 0] = 1.0                      # self column, as the plans set it
-    if case == "ragged":
-        mask[:, ::3, :] = 0.0                # zero-degree rows
-        mask[:, 1::3, 0] = 0.0               # mask[:, 0] = 0: h0 still read
-    w = (rng.normal(size=(m, d, d)) / np.sqrt(d)).astype(np.float32)
-    b = rng.normal(size=(m, d)).astype(np.float32)
-    return h, h0, idx, mask, w, b
-
-
-GCNII_CASES = [
-    # m, n_src, n_dst, f1, d, case, alpha, beta
-    (3, 300, 130, 4, 64, "plain", 0.1, 0.25),     # n_dst % 128 != 0
-    (2, 80, 1, 6, 24, "plain", 0.3, 0.125),       # n_dst = 1, d = 24
-    (3, 90, 77, 9, 24, "ragged", 0.2, 0.5),       # zero rows, mask[:, 0] = 0
-    (3, 2708, 40, 33, 64, "plain", 0.1, 0.5 / 3),  # cora's source set, W = 33
-]
 
 
 @pytest.mark.parametrize("m,n_src,n_dst,f1,d,case,alpha,beta", GCNII_CASES)
 def test_gcnii_plain_matches_pallas_and_oracle(m, n_src, n_dst, f1, d, case,
                                                alpha, beta):
-    h, h0, idx, mask, w, b = _gcnii_inputs(0, m, n_src, n_dst, f1, d, case)
+    h, h0, idx, mask, w, b = gcnii_inputs(0, m, n_src, n_dst, f1, d, case)
     got = graph_agg.gcnii_layer_plain(
         *map(torch.from_numpy, (h, h0, idx, mask, w, b)),
         alpha=alpha, beta=beta).numpy()
@@ -71,7 +53,7 @@ def test_gcnii_plain_matches_pallas_and_oracle(m, n_src, n_dst, f1, d, case,
 
 def test_ops_dispatch_cpu_takes_plain_version():
     h, h0, idx, mask, w, b = map(torch.from_numpy,
-                                 _gcnii_inputs(1, 2, 50, 20, 4, 16))
+                                 gcnii_inputs(1, 2, 50, 20, 4, 16))
     before = graph_agg.gcnii_layer_cuda.launches
     got = ops.gcnii_layer(h, h0, idx, mask, w, b, alpha=0.1, beta=0.5)
     want = graph_agg.gcnii_layer_plain(h, h0, idx, mask, w, b, alpha=0.1,
@@ -81,7 +63,7 @@ def test_ops_dispatch_cpu_takes_plain_version():
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
-    args = map(torch.from_numpy, _gcnii_inputs(2, 1, 10, 4, 3, 8))
+    args = map(torch.from_numpy, gcnii_inputs(2, 1, 10, 4, 3, 8))
     with pytest.raises(ValueError, match="CUDA tensor"):
         graph_agg.gcnii_layer_cuda(*args, alpha=0.1, beta=0.5)
     with pytest.raises(ValueError, match="no kernel for device"):
@@ -166,7 +148,7 @@ def test_gat_oracles_match_jax(n_src, n_dst, f1, d, heads, dh):
 
 
 def test_gcnii_backbone_layer_matches_jax():
-    h, h0, idx, mask, w, b = (x[0] for x in _gcnii_inputs(7, 1, 100, 50, 6, 32))
+    h, h0, idx, mask, w, b = (x[0] for x in gcnii_inputs(7, 1, 100, 50, 6, 32))
     got = tgnn.gcnii_layer({"W": torch.from_numpy(w), "b": torch.from_numpy(b)},
                            *map(torch.from_numpy, (h, h0, idx, mask)),
                            alpha=0.2, beta=0.25).numpy()
@@ -192,41 +174,102 @@ def test_init_shapes_and_scales_match_reference():
         assert torch.count_nonzero(got["b"]) == 0
 
 
-# ------------------------------------------------------- kernel on the card
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA device: the hand-written kernel runs only on "
-                    "the card (chip_smoke.py drives it there)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
+# ------------------------------------------------------------ the GCN kernel
+@pytest.mark.parametrize("m,n_src,n_dst,f1,d,d_out,ragged", GCN_CASES)
+def test_graph_agg_plain_matches_pallas_and_oracle(m, n_src, n_dst, f1, d,
+                                                   d_out, ragged):
+    h, idx, mask, w = gcn_inputs(0, m, n_src, n_dst, f1, d, d_out, ragged)
+    got = graph_agg.graph_agg_plain(*map(torch.from_numpy, (h, idx, mask, w)))
+    assert got.shape == (m, n_dst, d_out)
+    via_ops = ops.graph_agg(*map(torch.from_numpy, (h, idx, mask, w)))
+    assert torch.equal(via_ops, got)
+    for c in range(m):
+        args = tuple(jnp.asarray(x[c]) for x in (h, idx, mask, w))
+        pallas = ref_graph_agg.graph_agg_pallas(*args, interpret=True)
+        oracle = jref.graph_agg_ref(*args)
+        np.testing.assert_allclose(got[c].numpy(), np.asarray(pallas), **TOL)
+        np.testing.assert_allclose(got[c].numpy(), np.asarray(oracle), **TOL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,n_src,n_dst,f1,d,case,alpha,beta", GCNII_CASES)
-def test_gcnii_cuda_kernel_matches_plain(cuda_device, m, n_src, n_dst, f1, d,
-                                         case, alpha, beta):
-    args = [torch.from_numpy(x).to(cuda_device)
-            for x in _gcnii_inputs(8, m, n_src, n_dst, f1, d, case)]
-    before = graph_agg.gcnii_layer_cuda.launches
-    got = graph_agg.gcnii_layer_cuda(*args, alpha=alpha, beta=beta)
-    torch.cuda.synchronize()
-    assert graph_agg.gcnii_layer_cuda.launches == before + 1
-    want = graph_agg.gcnii_layer_plain(*args, alpha=alpha, beta=beta)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+@pytest.mark.parametrize("m,n_src,n_dst,f1,d,d_out,ragged", GCN_CASES[:2])
+def test_graph_agg_gradients_match_jax_vjp(m, n_src, n_dst, f1, d, d_out,
+                                           ragged):
+    h, idx, mask, w = gcn_inputs(1, m, n_src, n_dst, f1, d, d_out, ragged)
+    g = cotangent(2, (m, n_dst, d_out))
+    th = torch.from_numpy(h).requires_grad_(True)
+    tw = torch.from_numpy(w).requires_grad_(True)
+    out = ops.graph_agg(th, torch.from_numpy(idx), torch.from_numpy(mask), tw)
+    dh, dw = torch.autograd.grad(out, (th, tw), torch.from_numpy(g))
+    for c in range(m):
+        _, vjp = jax.vjp(lambda a, b: jref.graph_agg_ref(
+            a, jnp.asarray(idx[c]), jnp.asarray(mask[c]), b),
+            jnp.asarray(h[c]), jnp.asarray(w[c]))
+        want_dh, want_dw = vjp(jnp.asarray(g[c]))
+        np.testing.assert_allclose(dh[c].numpy(), np.asarray(want_dh), **TOL)
+        np.testing.assert_allclose(dw[c].numpy(), np.asarray(want_dw), **TOL)
 
 
-@pytest.mark.cuda
-def test_gcnii_cuda_wrapper_rejects_strided_input(cuda_device):
-    h, h0, idx, mask, w, b = [torch.from_numpy(x).to(cuda_device)
-                              for x in _gcnii_inputs(9, 3, 40, 8, 4, 16)]
-    broadcast = h[:1].expand(3, -1, -1)          # stride 0 on the client axis
-    with pytest.raises(ValueError, match="not contiguous"):
-        graph_agg.gcnii_layer_cuda(broadcast, h0, idx, mask, w, b,
-                                   alpha=0.1, beta=0.5)
-    with pytest.raises(TypeError, match="int32"):
-        graph_agg.gcnii_layer_cuda(h, h0, idx.long(), mask, w, b,
-                                   alpha=0.1, beta=0.5)
-    w.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        ops.gcnii_layer(h, h0, idx, mask, w, b, alpha=0.1, beta=0.5)
+@pytest.mark.parametrize("m,n_src,n_dst,f1,d,case,alpha,beta",
+                         GCNII_CASES[:3])
+def test_gcnii_gradients_match_jax_vjp(m, n_src, n_dst, f1, d, case, alpha,
+                                       beta):
+    h, h0, idx, mask, w, b = gcnii_inputs(3, m, n_src, n_dst, f1, d, case)
+    idx[:, :, 1] = idx[:, :, 0]              # a source repeated in the fanout
+    g = cotangent(4, (m, n_dst, d))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (h, h0, w, b)]
+    th, th0, tw, tb = leaves
+    out = ops.gcnii_layer(th, th0, torch.from_numpy(idx),
+                          torch.from_numpy(mask), tw, tb, alpha=alpha,
+                          beta=beta)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    for c in range(m):
+        _, vjp = jax.vjp(lambda a, a0, ww, bb: jref.gcnii_layer_ref(
+            a, a0, jnp.asarray(idx[c]), jnp.asarray(mask[c]), ww, bb, alpha,
+            beta), *(jnp.asarray(x[c]) for x in (h, h0, w, b)))
+        for got, want in zip(grads, vjp(jnp.asarray(g[c]))):
+            np.testing.assert_allclose(got[c].numpy(), np.asarray(want),
+                                       **TOL)
+
+
+def test_gradcheck_float64_both_ops():
+    rng = np.random.default_rng(5)
+    m, n_src, n_dst, f1, d = 2, 12, 7, 4, 5
+    idx = torch.from_numpy(rng.integers(0, n_src, size=(m, n_dst, f1))
+                           .astype(np.int32))
+    mask = torch.from_numpy((rng.random((m, n_dst, f1)) < 0.7)
+                            .astype(np.float32)).double()
+    mask[:, 0, :] = 0.0
+    mask[:, 1, 0] = 0.0
+    leaf = lambda *s: torch.from_numpy(rng.normal(size=s)).requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda h, w: ops.graph_agg(h, idx, mask, w),
+        (leaf(m, n_src, d), leaf(m, d, 3)))
+    assert torch.autograd.gradcheck(
+        lambda h, h0, w, b: ops.gcnii_layer(h, h0, idx, mask, w, b,
+                                            alpha=0.2, beta=0.3),
+        (leaf(m, n_src, d), leaf(m, n_src, d), leaf(m, d, d), leaf(m, d)))
+
+
+def test_graph_agg_backward_needs_no_forward_and_skips_idx_mask():
+    h, idx, mask, w = map(torch.from_numpy, gcn_inputs(6, 2, 30, 9, 4, 8, 8))
+    mean = graph_agg._masked_mean(h, idx, mask)
+    g = torch.ones(2, 9, 8)
+    dh, dw = ops.graph_agg_backward(h, idx, mask, w, mean, g,
+                                    need_h=False)
+    assert dh is None and dw.shape == w.shape
+    th = h.clone().requires_grad_(True)
+    out = ops.graph_agg(th, idx, mask, w)
+    assert out.grad_fn is not None
+    assert out.grad_fn.next_functions[1][0] is None   # idx: no gradient
+
+
+def test_graph_agg_refuses_csr_size_on_cuda_only(monkeypatch):
+    monkeypatch.setattr(ops, "CSR_DISPATCH_MIN_SRC", 8)
+    h, idx, mask, w = map(torch.from_numpy, gcn_inputs(7, 1, 10, 4, 3, 4, 4))
+    ops.graph_agg(h, idx, mask, w)            # the CPU takes the plain version
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        graph_agg.graph_agg_cuda(h, idx, mask, w)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.graph_agg(*(torch.empty(1, 1, 1, device="meta")
+                        for _ in range(4)))

@@ -123,15 +123,20 @@ def test_unported_serve_options_raise(world):
 
 
 def test_gcn_and_gat_refuse_the_card(world):
-    """Backbones without a ported kernel raise on any non-CPU tensor; a
-    meta tensor stands in for a CUDA one here."""
-    for backbone in ("gcn", "gat"):
+    """GAT has no ported kernel and raises on any non-CPU tensor; GCN runs
+    its kernel on CUDA and raises on any other non-CPU device. A meta
+    tensor stands in for the card here."""
+    h = torch.empty(3, 10, 8, device="meta")
+    idx = torch.empty(3, 4, 2, dtype=torch.int32, device="meta")
+    p = {"W": torch.empty(3, 8, 8, device="meta"),
+         "b": torch.empty(3, 8, device="meta")}
+    for backbone, err, match in (
+            ("gat", NotImplementedError, "kernel not ported yet"),
+            ("gcn", ValueError, "no kernel for device meta")):
         mcfg = glasu.GlasuConfig(backbone=backbone, hidden=8, d_in=8)
         layer = glasu._client_layer(mcfg, 0)
-        h = torch.empty(3, 10, 8, device="meta")
-        idx = torch.empty(3, 4, 2, dtype=torch.int32, device="meta")
-        with pytest.raises(NotImplementedError, match="kernel not ported yet"):
-            layer({}, h, h, idx, idx.float())
+        with pytest.raises(err, match=match):
+            layer(p, h, h, idx, idx.float())
 
 
 # ------------------------------------------------------------ core forward
