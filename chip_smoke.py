@@ -11,26 +11,27 @@ Phases, each printing its own lines:
             the sources in this checkout (``src/repro_torch/kernels/csrc``,
             one nvcc per source, all started together) and prints the build
             seconds and ptxas' register/shared-memory report;
-3. kernels  holds each kernel against its plain PyTorch version on the card
-            at the serving, training and eval shapes and on ragged shapes,
-            max abs error <= 1e-5 (fp32, fanout sums in another order), and
-            times both with CUDA events (median of 30 after warm-up) beside
-            the least time the card could take; then each op's gradients on
-            the card against the CPU's at rtol = atol = 1e-4 (cuBLAS sums
-            the backward's products in another order) and the backward's
-            device time;
-4. slice    serves ``cora-gcnii-glasu`` at full width (M = 3, L = 4,
-            hidden 64, d_in 478) from seeded random parameters: a 16-query
-            cold answer, the same query warm (bitwise equal, 0 wire bytes),
-            ``precompute()`` and a fresh session's cold answer against the
-            full-graph logits, and the same cold answer on the CPU (plain
-            versions) at rtol = atol = 1e-4;
-5. train    ``Trainer(get_preset(name)).run()`` for ``cora-gcn-glasu`` and
-            ``cora-gcnii-glasu`` at full width, 200 rounds each (Alg 1,
-            Q = 4, Adam): test accuracy >= 0.90 / 0.95, comm bytes exactly
-            164,736,000, 20 kernel launches a round; 4 rounds from the same
-            parameters and batches on the card and on the CPU; rounds/s on
-            the host clock, where a round's time goes, and one profiled
+3. kernels  holds each kernel (GCNII, GCN, GAT) against its plain PyTorch
+            version on the card at the serving, training and eval shapes
+            and on ragged and masked shapes, max abs error <= 1e-5 (fp32,
+            sums in another order), and times both with CUDA events (median
+            of 30 after warm-up) beside the least time the card could take;
+            then each op's gradients on the card against the CPU's at
+            rtol = atol = 1e-4 (cuBLAS sums the backward's products in
+            another order) and the backward's device time;
+4. slice    serves ``cora-gcnii-glasu`` and ``cora-gat-glasu`` at full
+            width (M = 3, L = 4, hidden 64, d_in 478) from seeded random
+            parameters: a 16-query cold answer, the same query warm (bitwise
+            equal, 0 wire bytes), ``precompute()`` and a fresh session's
+            cold answer against the full-graph logits, and the same cold
+            answer on the CPU (plain versions) at rtol = atol = 1e-4;
+5. train    ``Trainer(get_preset(name)).run()`` for ``cora-gcn-glasu``,
+            ``cora-gcnii-glasu`` and ``cora-gat-glasu`` at full width, 200
+            rounds each (Alg 1, Q = 4, Adam): test accuracy >= 0.90 / 0.95 /
+            0.65, comm bytes exactly 164,736,000, >= 20 launches a round of
+            the preset's kernel and none of the others; 4 rounds from the
+            same parameters and batches on the card and on the CPU; rounds/s
+            on the host clock, where a round's time goes, and one profiled
             round's device-busy time and idle share;
 6. result   one JSON line listing every kernel, then the final JSON line.
 
@@ -62,11 +63,23 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 # parameter by up to 2·lr = 0.02 per step, so only the losses are held, at
 # that order (the SGD rounds are the tight comparison)
 ADAM_LOSS_TOL = dict(rtol=2e-2, atol=2e-2)
-# preset -> (its kernel's wrapper, the other kernel's, least test accuracy)
-TRAIN_PRESETS = {"cora-gcn-glasu": ("graph_agg_cuda", "gcnii_layer_cuda",
-                                    0.90),
-                 "cora-gcnii-glasu": ("gcnii_layer_cuda", "graph_agg_cuda",
-                                      0.95)}
+# presets whose free-running Adam rounds are chaotic, so their 4-round card
+# vs CPU losses are reported and the re-synchronised rounds are held: on
+# cora-gat-glasu (H100) the free-running gap reads 1.6e-3, 6.8e-3, 0.31 and
+# 1.1 in rounds 1-4 while each round alone stays within 1.6e-3, and the
+# reference's own 200-round Adam run climbs to a loss of 62.8 at round 100
+ADAM_CHAOTIC = ("cora-gat-glasu",)
+KERNEL_WRAPPERS = ("graph_agg_cuda", "gcnii_layer_cuda", "gat_layer_cuda")
+# preset -> (its kernel's wrapper, least test accuracy). The reference
+# reaches 0.934 / 0.989 on the first two (seed 0) and 0.693-0.809 on the GAT
+# preset over seeds 0-4, its CPU runs; the port draws other initial
+# parameters, so the GAT floor sits under the reference's worst seed
+TRAIN_PRESETS = {"cora-gcn-glasu": ("graph_agg_cuda", 0.90),
+                 "cora-gcnii-glasu": ("gcnii_layer_cuda", 0.95),
+                 "cora-gat-glasu": ("gat_layer_cuda", 0.65)}
+# served presets -> their kernel's wrapper
+SERVE_PRESETS = {"cora-gcnii-glasu": "gcnii_layer_cuda",
+                 "cora-gat-glasu": "gat_layer_cuda"}
 TRAIN_ROUNDS = None          # None: the preset's own 200 rounds
 TRAIN_COMM_BYTES = 164_736_000
 # H100 SXM peaks at its full 700 W limit (NVIDIA's data sheet): device-memory
@@ -146,6 +159,34 @@ def _gcn_bound(torch, h, idx, mask, w):
             nbytes, flops)
 
 
+def _gat_bound(torch, h, idx, mask, w, a_src, a_dst, b):
+    """(bound_ms, bound_by, bytes, flops) of one GAT call on these inputs:
+    each input read once (of h only the rows the live fanout entries and
+    the self column reference), the output written once; the projection
+    and scores of those rows, the logits, softmax and mask of every
+    (row, entry, head), the weighted sum over the live entries, bias and
+    elu."""
+    m, n_dst, f1 = idx.shape
+    d, heads = h.shape[2], w.shape[2]
+    hd = heads * w.shape[3]
+    live = mask > 0
+    rows = sum(int(torch.unique(torch.cat([idx[c][live[c]], idx[c, :, 0]]))
+                   .numel()) for c in range(m))
+    nbytes = (rows * d * 4 + idx.numel() * 4 + mask.numel() * 4
+              + (w.numel() + a_src.numel() + a_dst.numel() + b.numel()) * 4
+              + m * n_dst * hd * 4)
+    flops = (2 * rows * d * hd                # wh = h @ W
+             + 4 * rows * hd                  # wh.a_src, wh.a_dst
+             + 7 * m * n_dst * f1 * heads     # logit, leaky relu, mask,
+                                              # max, exp, sum, divide + mask
+             + 2 * int(live.sum()) * hd       # attention-weighted sum
+             + 3 * m * n_dst * hd)            # bias, elu
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
 def phase_device(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -163,7 +204,7 @@ def phase_device(torch):
 
 def phase_build(build):
     t0 = time.perf_counter()
-    results = build.build(["gcnii_layer", "graph_agg"])
+    results = build.build(["gcnii_layer", "graph_agg", "gat_layer"])
     total = time.perf_counter() - t0
     for r in results:
         state = f"{r.seconds:.2f} s" if r.seconds else "already built"
@@ -309,9 +350,94 @@ def phase_kernels_gcn(torch, graph_agg):
           "product)")
 
 
+def _gat_inputs(torch, gen, m, n_src, n_dst, f1, d, heads, dh, case):
+    h = torch.randn(m, n_src, d, generator=gen)
+    idx = torch.randint(0, n_src, (m, n_dst, f1), generator=gen,
+                        dtype=torch.int32)
+    mask = (torch.rand(m, n_dst, f1, generator=gen) < 0.7).float()
+    mask[:, :, 0] = 1.0                      # the plans' self column
+    if case == "all-masked rows":
+        mask[:, ::4, :] = 0.0                # softmax uniform, out = elu(b)
+    elif case == "mask[:,0]=0":
+        mask[:, :, 0] = 0.0                  # self score still read
+    w = torch.randn(m, d, heads, dh, generator=gen) / d ** 0.5
+    a_src = 0.1 * torch.randn(m, heads, dh, generator=gen)
+    a_dst = 0.1 * torch.randn(m, heads, dh, generator=gen)
+    b = 0.1 * torch.randn(m, heads * dh, generator=gen)
+    return [t.cuda() for t in (h, idx, mask, w, a_src, a_dst, b)]
+
+
+def phase_kernels_gat(torch, graph_agg):
+    """GAT kernel vs plain at the training and eval shapes, the reference's
+    four kernel-test shapes (heads 1/2/4, dh 8-64, ragged n_dst) and masked
+    rows; every saved intermediate too, and save=False bitwise equal."""
+    gen = torch.Generator().manual_seed(SEED + 4)
+    m = 3
+    cases = [
+        # label, n_src, n_dst, F+1, d, heads, dh, case
+        ("train l0", 512, 512, 4, 64, 2, 32, ""),
+        ("train l1", 512, 512, 4, 64, 2, 32, ""),
+        ("train l2", 512, 64, 4, 64, 2, 32, ""),
+        ("train l3", 64, 16, 4, 64, 2, 32, ""),
+        ("eval", 2708, 2708, 33, 64, 2, 32, ""),
+        ("ref 64/32 H2 dh8", 64, 32, 5, 16, 2, 8, ""),
+        ("ref 300/130 H2 dh32", 300, 130, 4, 64, 2, 32, ""),
+        ("ref 256/77 H4 dh16", 256, 77, 5, 96, 4, 16, ""),
+        ("ref 200/129 H1 dh64", 200, 129, 9, 48, 1, 64, ""),
+        ("all-masked rows", 500, 300, 4, 64, 2, 32, "all-masked rows"),
+        ("all-masked rows F+1=33", 2708, 300, 33, 64, 2, 32,
+         "all-masked rows"),
+        ("mask[:,0]=0", 500, 300, 33, 64, 2, 32, "mask[:,0]=0"),
+    ]
+    worst = 0.0
+    for label, n_src, n_dst, f1, d, heads, dh, case in cases:
+        args = _gat_inputs(torch, gen, m, n_src, n_dst, f1, d, heads, dh,
+                           case)
+        got = graph_agg.gat_layer_cuda(*args, save=True)
+        out_only = graph_agg.gat_layer_cuda(*args)
+        torch.cuda.synchronize()
+        want = graph_agg.gat_layer_plain(*args, save=True)
+        if not (torch.isfinite(got[0]).all()
+                and torch.equal(got[0], out_only)):
+            raise AssertionError(f"gat_layer_cuda at {label}: non-finite, or "
+                                 "save=True changed the output")
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        worst = max(worst, err)
+        if err > KERNEL_ATOL:
+            raise AssertionError(
+                f"gat_layer_cuda vs plain at {label}: max abs err {err:.3e}"
+                f" > {KERNEL_ATOL:.0e} (out, wh, softmax, logits)")
+        if case == "all-masked rows":
+            elu_b = torch.nn.functional.elu(args[6])[:, None]
+            if float((got[0][:, ::4] - elu_b).abs().max()) > KERNEL_ATOL:
+                raise AssertionError(f"gat_layer_cuda at {label}: an "
+                                     "all-masked row is not elu(b)")
+        kernel = lambda: graph_agg.gat_layer_cuda(*args)
+        k_ms = _time_ms(torch, kernel)
+        save_ms = _time_ms(torch, lambda: graph_agg.gat_layer_cuda(
+            *args, save=True))
+        launch_ms = _time_ms(torch, kernel, preload=False)
+        p_ms = _time_ms(torch, lambda: graph_agg.gat_layer_plain(*args))
+        bound_ms, bound_by, nbytes, flops = _gat_bound(torch, *args)
+        print(f"kernels: gat_layer {label}: M={m} n_src={n_src} "
+              f"n_dst={n_dst} d={d} H={heads} dh={dh} F+1={f1} "
+              f"max_abs_err={err:.3e} kernel_ms={k_ms:.4f} "
+              f"save_ms={save_ms:.4f} launch_ms={launch_ms:.4f} "
+              f"plain_ms={p_ms:.4f} bound_us={bound_ms * 1e3:.3f} "
+              f"({bound_by}; {nbytes} B, {flops} flop) library_ms=null")
+    print(f"kernels: gat_layer worst max_abs_err {worst:.3e} <= "
+          f"{KERNEL_ATOL:.0e}; library_ms=null: {GAT_LIBRARY_NOTE}")
+
+
+GAT_LIBRARY_NOTE = ("no single PyTorch call computes masked multi-head graph "
+                    "attention with its projection (scaled_dot_product_"
+                    "attention takes dense q/k/v and dot-product scores, not "
+                    "a gathered fanout with additive leaky-relu scores)")
+
+
 def phase_grads(torch, ops):
-    """Card vs CPU gradients of both autograd Functions at the training
-    shapes, and the explicit backward's device time."""
+    """Card vs CPU gradients of the three autograd Functions at the
+    training shapes, and the explicit backward's device time."""
     gen = torch.Generator().manual_seed(SEED + 2)
     for label, n_src, n_dst in (("train l0", 512, 512),
                                 ("train l2", 512, 64),
@@ -321,12 +447,16 @@ def phase_grads(torch, ops):
         h0 = torch.randn(3, n_src, 64, generator=gen).cuda()
         b = (0.1 * torch.randn(3, 64, generator=gen)).cuda()
         g = torch.randn(3, n_dst, 64, generator=gen).cuda()
+        w4 = (torch.randn(3, 64, 2, 32, generator=gen) / 8.0).cuda()
+        a_src, a_dst = (0.1 * torch.randn(2, 3, 2, 32, generator=gen)).cuda()
         ops_cases = {
             "graph_agg": (lambda t, i, k: ops.graph_agg(t[0], i, k, t[1]),
                           [h, w]),
             "gcnii_layer": (lambda t, i, k: ops.gcnii_layer(
                 t[0], t[1], i, k, t[2], t[3], alpha=0.1, beta=0.25),
                 [h, h0, w, b]),
+            "gat_layer": (lambda t, i, k: ops.gat_layer(t[0], i, k, *t[1:]),
+                          [h, w4, a_src, a_dst, b]),
         }
         for name, (fn, leaves) in ops_cases.items():
             grads = {}
@@ -374,16 +504,27 @@ class _Capture:
         setattr(self.ops, self.name, self.orig)
 
 
-def phase_slice(torch, np, mods):
+def _zero_counts(graph_agg):
+    for name in KERNEL_WRAPPERS:
+        getattr(graph_agg, name).launches = 0
+
+
+def _counts(graph_agg):
+    return {name: getattr(graph_agg, name).launches
+            for name in KERNEL_WRAPPERS}
+
+
+def phase_slice(torch, np, mods, name, kernel_name):
+    """Serves preset ``name`` through ``kernel_name``'s kernel."""
     glasu, graph_agg, ops = mods["glasu"], mods["graph_agg"], mods["ops"]
-    cfg = mods["get_preset"]("cora-gcnii-glasu")
+    cfg = mods["get_preset"](name)
     data = mods["make_vfl_dataset"](cfg.dataset, n_clients=cfg.n_clients,
                                     seed=cfg.seed)
     mcfg = cfg.glasu_config(data)
     width = (mcfg.n_clients, mcfg.n_layers, mcfg.hidden, mcfg.d_in,
-             mcfg.n_classes, tuple(mcfg.agg_layers))
-    if width != (3, 4, 64, 478, 7, (1, 3)):
-        raise AssertionError(f"cora-gcnii-glasu is not at full width: {width}")
+             mcfg.n_classes, tuple(mcfg.agg_layers), mcfg.gat_heads)
+    if width != (3, 4, 64, 478, 7, (1, 3), 2):
+        raise AssertionError(f"{name} is not at full width: {width}")
     params = glasu.init_params(torch.Generator().manual_seed(SEED), mcfg,
                                "cpu")
     serve = mods["ServeConfig"](max_batch=16)
@@ -396,27 +537,30 @@ def phase_slice(torch, np, mods):
 
     # warm-up session, outside the counted run: CUDA context, library
     # handles, and the main path's kernel inputs for the result line
-    with _Capture(ops, "gcnii_layer") as cap:
+    kernel = getattr(graph_agg, kernel_name)
+    with _Capture(ops, kernel_name.replace("_cuda", "")) as cap:
         s = session("cuda")
         s.answer(q)
         s.precompute()
     captured = cap.calls
 
-    graph_agg.gcnii_layer_cuda.launches = 0           # ---- counted run
+    _zero_counts(graph_agg)                           # ---- counted run
     sess = session("cuda")
     cold = sess.answer(q)
-    per_cold = graph_agg.gcnii_layer_cuda.launches
+    per_cold = kernel.launches
     warm = sess.answer(q)
     full = sess.precompute()
     fresh = session("cuda").answer(q)
-    launches = graph_agg.gcnii_layer_cuda.launches    # ---- read counts
+    counts = _counts(graph_agg)                       # ---- read counts
     torch.cuda.synchronize()
+    launches = counts.pop(kernel_name)
 
     if per_cold < mcfg.n_layers:
-        raise AssertionError(f"cold answer launched gcnii_layer_cuda "
+        raise AssertionError(f"cold answer launched {kernel_name} "
                              f"{per_cold} times, expected >= {mcfg.n_layers}")
-    if launches == 0:
-        raise AssertionError("the main path never launched gcnii_layer_cuda")
+    if launches == 0 or any(counts.values()):
+        raise AssertionError(f"serving {name}: {kernel_name} launched "
+                             f"{launches} times, the others {counts}")
     if cold.logits.shape != (16, mcfg.n_classes) or \
             not np.isfinite(cold.logits).all():
         raise AssertionError(f"bad cold logits {cold.logits.shape}")
@@ -430,12 +574,12 @@ def phase_slice(torch, np, mods):
         raise AssertionError(f"bad precompute logits {full.shape}")
     np.testing.assert_allclose(fresh.logits, full.mean(axis=0)[q],
                                **SLICE_TOL)
-    print(f"slice: cora-gcnii-glasu M={mcfg.n_clients} L={mcfg.n_layers} "
+    print(f"slice: {name} M={mcfg.n_clients} L={mcfg.n_layers} "
           f"hidden={mcfg.hidden} d_in={mcfg.d_in} classes={mcfg.n_classes}"
-          f" N={data.n_nodes}; gcnii_layer_cuda launches: {per_cold} per "
+          f" N={data.n_nodes}; {kernel_name} launches: {per_cold} per "
           f"cold answer, {launches} in the counted run (cold, warm, "
-          "precompute, fresh cold)")
-    print(f"slice: cold wire {cold.wire_bytes} B (fresh rows "
+          f"precompute, fresh cold), the other kernels {counts}")
+    print(f"slice: {name} cold wire {cold.wire_bytes} B (fresh rows "
           f"{cold.fresh_rows}), warm wire {warm.wire_bytes} B, warm == cold "
           "bitwise; fresh cold vs full_forward max abs diff "
           f"{np.abs(fresh.logits - full.mean(axis=0)[q]).max():.3e}")
@@ -445,7 +589,7 @@ def phase_slice(torch, np, mods):
     np.testing.assert_allclose(cold.per_client, cpu.per_client, **SLICE_TOL)
     if (cpu.fresh_rows, cpu.wire_bytes) != (cold.fresh_rows, cold.wire_bytes):
         raise AssertionError("CPU and CUDA sessions billed different bytes")
-    print(f"slice: CUDA vs CPU (plain) cold logits max abs diff "
+    print(f"slice: {name} CUDA vs CPU (plain) cold logits max abs diff "
           f"{np.abs(cold.logits - cpu.logits).max():.3e} "
           f"(rtol=atol={SLICE_TOL['atol']:.0e})")
 
@@ -455,16 +599,16 @@ def phase_slice(torch, np, mods):
         cold_ms.append(sess.answer(q).latency_s * 1e3)
     for _ in range(200):
         warm_ms.append(sess.answer(q).latency_s * 1e3)
-    print(f"slice: 16-query answer latency cold median "
+    print(f"slice: {name} 16-query answer latency cold median "
           f"{statistics.median(cold_ms):.3f} ms "
           f"({1e3 / statistics.mean(cold_ms):.1f} answers/s), warm median "
           f"{statistics.median(warm_ms):.3f} ms "
           f"({1e3 / statistics.mean(warm_ms):.1f} answers/s)")
-    _cold_breakdown(torch, np, sess, q, glasu)
+    _cold_breakdown(torch, np, sess, q, glasu, name)
     return launches, captured
 
 
-def _cold_breakdown(torch, np, sess, q, glasu):
+def _cold_breakdown(torch, np, sess, q, glasu, name):
     """Where one cold answer's time goes: host clock around its stages
     (medians of 20), then one answer under torch.profiler for the device's
     busy time."""
@@ -491,7 +635,8 @@ def _cold_breakdown(torch, np, sess, q, glasu):
             plan_ms.append((t1 - t0) * 1e3)
             fwd_ms.append((t2 - t1) * 1e3)
             d2h_ms.append((t3 - t2) * 1e3)
-    print(f"slice: cold answer stages (host clock, medians of 20): plan "
+    print(f"slice: {name} cold answer stages (host clock, medians of 20): "
+          f"plan "
           f"build + staging {statistics.median(plan_ms):.3f} ms, "
           f"serve_forward to sync {statistics.median(fwd_ms):.3f} ms, "
           f"copy-back {statistics.median(d2h_ms):.3f} ms")
@@ -510,7 +655,8 @@ def _cold_breakdown(torch, np, sess, q, glasu):
               and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
     wall_us = ans.latency_s * 1e6
-    print(f"slice: profiled cold answer: wall {wall_us / 1e3:.3f} ms (under "
+    print(f"slice: {name} profiled cold answer: wall {wall_us / 1e3:.3f} ms "
+          f"(under "
           f"the profiler), device busy {busy_us / 1e3:.3f} ms, idle share "
           f"{1 - busy_us / wall_us:.3f}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
@@ -520,15 +666,19 @@ def _cold_breakdown(torch, np, sess, q, glasu):
 
 def _train_width(mcfg, sampler, cfg):
     return ((mcfg.n_clients, mcfg.n_layers, mcfg.hidden, mcfg.d_in,
-             mcfg.n_classes, tuple(mcfg.agg_layers), mcfg.n_local_steps),
+             mcfg.n_classes, tuple(mcfg.agg_layers), mcfg.n_local_steps,
+             mcfg.gat_heads),
             (cfg.optimizer, cfg.lr, cfg.batch_size, cfg.fanout,
              cfg.size_cap, list(sampler.layer_sizes)))
 
 
 def _cpu_vs_card(torch, mods, cfg, trainer):
     """4 rounds from the same parameters and batches on the card and on
-    the CPU, under SGD (held at GRAD_TOL) and the preset's Adam (losses
-    held at ADAM_LOSS_TOL)."""
+    the CPU: under SGD, free-running, held at GRAD_TOL; under the preset's
+    Adam, free-running, losses held at ADAM_LOSS_TOL except for the presets
+    of ADAM_CHAOTIC (reported only); and under Adam re-synchronised, each
+    round started on both devices from the CPU's parameters and optimizer
+    state, losses held at ADAM_LOSS_TOL."""
     glasu, tree_map = mods["glasu"], mods["tree_map"]
     mcfg = trainer.model_cfg
     p0 = glasu.init_params(torch.Generator().manual_seed(SEED + 3), mcfg,
@@ -549,14 +699,47 @@ def _cpu_vs_card(torch, mods, cfg, trainer):
         (pc, lc), (pp, lp) = res["cuda"], res["cpu"]
         loss_err = float((lc - lp).abs().max())
         param_err = max(float((a - b).abs().max()) for a, b in zip(pc, pp))
-        torch.testing.assert_close(
-            lc, lp, **(GRAD_TOL if opt_name == "sgd" else ADAM_LOSS_TOL))
+        held = opt_name == "sgd" or cfg.name not in ADAM_CHAOTIC
+        if held:
+            torch.testing.assert_close(
+                lc, lp, **(GRAD_TOL if opt_name == "sgd" else ADAM_LOSS_TOL))
         if opt_name == "sgd":
             for a, b in zip(pc, pp):
                 torch.testing.assert_close(a, b, **GRAD_TOL)
+        per_round = [f"{float(x):.3e}" for x in (lc - lp).abs().amax(dim=1)]
         print(f"train: {cfg.name} 4 rounds card vs CPU ({opt_name}): losses "
-              f"(4 x {mcfg.n_local_steps}) max abs diff {loss_err:.3e}, "
-              f"params max abs diff {param_err:.3e}")
+              f"(4 x {mcfg.n_local_steps}) max abs diff {loss_err:.3e} (by "
+              f"round {per_round}{'' if held else ', reported, not held'}),"
+              f" params max abs diff {param_err:.3e}")
+    _adam_resync(torch, mods, cfg, mcfg, p0, host)
+
+
+def _adam_resync(torch, mods, cfg, mcfg, p0, host):
+    """The preset's optimizer, one round at a time: each of the 4 rounds
+    starts on the card and on the CPU from the CPU's parameters and
+    optimizer state, so a round's error does not compound into the next."""
+    tree_map = mods["tree_map"]
+    optimizer = mods["make_optimizer"](cfg.optimizer, cfg.lr)
+    round_fn = mods["glasu"].make_round_fn(mcfg, optimizer)
+    params, state = p0, optimizer.init(p0)
+    errs = []
+    for i in range(4):
+        batch = mods["unstack_round"](host, i)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            mv = lambda t, dev=dev: t.to(dev)
+            out[dev] = round_fn(tree_map(mv, params),
+                                type(state)(state.step, tree_map(mv, state.mu),
+                                            tree_map(mv, state.nu)),
+                                mods["batch_to_device"](batch, dev))
+        lc, lp = out["cuda"][2].cpu(), out["cpu"][2]
+        torch.testing.assert_close(lc, lp, **ADAM_LOSS_TOL)
+        errs.append(float((lc - lp).abs().max()))
+        params, state = out["cpu"][0], out["cpu"][1]
+    print(f"train: {cfg.name} 4 rounds card vs CPU ({cfg.optimizer}, each "
+          f"round from the CPU's state): losses max abs diff by round "
+          f"{[f'{e:.3e}' for e in errs]} (rtol=atol="
+          f"{ADAM_LOSS_TOL['atol']:.0e})")
 
 
 def _round_breakdown(torch, mods, trainer, kernel):
@@ -620,16 +803,16 @@ def _round_breakdown(torch, mods, trainer, kernel):
 
 
 def phase_train(torch, mods):
-    """Trains both presets through the Trainer on the card."""
+    """Trains every preset of TRAIN_PRESETS through the Trainer on the
+    card."""
     graph_agg, ops = mods["graph_agg"], mods["ops"]
     out = {}
-    for name, (kernel_name, other_name, min_acc) in TRAIN_PRESETS.items():
+    for name, (kernel_name, min_acc) in TRAIN_PRESETS.items():
         cfg = mods["get_preset"](name)
         if TRAIN_ROUNDS is not None:
             cfg = cfg.with_(rounds=TRAIN_ROUNDS)
         op = kernel_name.replace("_cuda", "")
         kernel = getattr(graph_agg, kernel_name)
-        other = getattr(graph_agg, other_name)
         # warm-up run, outside the counted run: CUDA context, library
         # handles, and the first joint inference's kernel inputs
         warm = mods["Trainer"](cfg.with_(rounds=1, eval_every=1))
@@ -637,13 +820,14 @@ def phase_train(torch, mods):
             warm.run()
         torch.cuda.synchronize()
 
-        kernel.launches = other.launches = 0             # ---- counted run
+        _zero_counts(graph_agg)                          # ---- counted run
         trainer = mods["Trainer"](cfg)
         t0 = time.perf_counter()
         res = trainer.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, other_launches = kernel.launches, other.launches  # ---- read
+        others = _counts(graph_agg)                      # ---- read counts
+        launches = others.pop(kernel_name)
 
         evals = [(e["round"], round(e["val_acc"], 4), round(e["test_acc"], 4))
                  for e in res.history]
@@ -655,10 +839,10 @@ def phase_train(torch, mods):
               f"acc {res.test_acc:.4f} (>= {min_acc}), val acc "
               f"{res.val_acc:.4f}, final loss {res.history[-1]['loss']:.4f},"
               f" comm {res.comm_bytes} B; {kernel_name} launches {launches},"
-              f" {other_name} {other_launches}")
+              f" the other kernels {others}")
         print(f"train: {name} evals (round, val acc, test acc): {evals}")
         width = _train_width(trainer.model_cfg, trainer.sampler, cfg)
-        want_width = ((3, 4, 64, 478, 7, (1, 3), 4),
+        want_width = ((3, 4, 64, 478, 7, (1, 3), 4, 2),
                       ("adam", 0.01, 16, 3, 512, [512, 512, 512, 64, 16]))
         if width != want_width:
             raise AssertionError(f"{name} is not at full width: {width}")
@@ -670,11 +854,11 @@ def phase_train(torch, mods):
         if res.comm_bytes != TRAIN_COMM_BYTES:
             raise AssertionError(f"{name} metered {res.comm_bytes} B, "
                                  f"expected {TRAIN_COMM_BYTES}")
-        if launches < 20 * cfg.rounds or other_launches != 0:
+        if launches < 20 * cfg.rounds or any(others.values()):
             raise AssertionError(
                 f"{name}: {kernel_name} launched {launches} times in "
-                f"{cfg.rounds} rounds (want >= {20 * cfg.rounds}), "
-                f"{other_name} {other_launches} times (want 0)")
+                f"{cfg.rounds} rounds (want >= {20 * cfg.rounds}), the "
+                f"other kernels {others} (want 0)")
         for leaf in mods["tree_leaves"](res.params):
             if leaf.device.type != trainer.device.type \
                     or not torch.isfinite(leaf).all():
@@ -720,36 +904,41 @@ def _sums(rows):
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
-def phase_result(torch, graph_agg, trained, serve_launches, serve_captured,
-                 n_layers):
+def phase_result(torch, graph_agg, trained, served, n_layers):
     """The kernels line: each kernel timed on the inputs the training path
     gave it in one joint inference (the launches of its preset's counted
-    200-round run); GCNII also on one cold answer of the serving path."""
+    200-round run); GCNII and GAT also on one cold answer of the serving
+    path."""
     scope = (f"sum over the {n_layers} launches of one joint inference of a "
              "training round of {preset} (M=3, d=64, F+1=4, n_src/n_dst "
              "512/512, 512/512, 512/64, 64/16); ms, plain_ms: device time; "
              "launch_ms: with the host's enqueue time; launches: the "
              "preset's counted 200-round Trainer run")
+    gather_note = "no single PyTorch call computes the masked gather-mean " \
+                  "with the fused matmul"
     entries = []
-    for name, fn, plain, bound, source, replaces in (
+    for name, fn, plain, bound, source, replaces, note in (
             ("graph_agg", graph_agg.graph_agg_cuda, graph_agg.graph_agg_plain,
              _gcn_bound, "src/repro_torch/kernels/csrc/graph_agg.cu",
-             "src/repro/kernels/graph_agg.py:103"),
+             "src/repro/kernels/graph_agg.py:103", gather_note),
             ("gcnii_layer", graph_agg.gcnii_layer_cuda,
              graph_agg.gcnii_layer_plain, _gcnii_bound,
              "src/repro_torch/kernels/csrc/gcnii_layer.cu",
-             "src/repro/kernels/graph_agg.py:256")):
+             "src/repro/kernels/graph_agg.py:256", gather_note),
+            ("gat_layer", graph_agg.gat_layer_cuda,
+             graph_agg.gat_layer_plain, _gat_bound,
+             "src/repro_torch/kernels/csrc/gat_layer.cu",
+             "src/repro/kernels/graph_agg.py:342", GAT_LIBRARY_NOTE)):
         preset, run = next((p, r) for p, r in trained.items()
                            if r["kernel"] == name)
         rows = _replay(torch, run["captured"], fn, plain, bound)
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=run["launches"],
                      max_abs_err=max(r["max_abs_err"] for r in rows),
-                     **_sums(rows), library_ms=None,
-                     library_note="no single PyTorch call computes the "
-                                  "masked gather-mean with the fused matmul",
+                     **_sums(rows), library_ms=None, library_note=note,
                      scope=scope.format(preset=preset), per_launch=rows)
-        if name == "gcnii_layer":
+        if f"{name}_cuda" in served:
+            serve_launches, serve_captured = served[f"{name}_cuda"]
             serve_rows = _replay(torch, serve_captured, fn, plain, bound)
             cold = _sums(serve_rows[:n_layers])
             entry.update(
@@ -773,7 +962,7 @@ def main() -> int:
     import numpy as np
     from repro_torch.api import Trainer, get_preset
     from repro_torch.core import glasu
-    from repro_torch.graph.prefetch import sample_rounds
+    from repro_torch.graph.prefetch import sample_rounds, unstack_round
     from repro_torch.graph.sampler import GlasuSampler, batch_to_device
     from repro_torch.graph.synth import make_vfl_dataset
     from repro_torch.kernels import build, graph_agg, ops
@@ -785,17 +974,20 @@ def main() -> int:
     phase_build(build)
     phase_kernels(torch, graph_agg)
     phase_kernels_gcn(torch, graph_agg)
+    phase_kernels_gat(torch, graph_agg)
     phase_grads(torch, ops)
     mods = dict(glasu=glasu, graph_agg=graph_agg, ops=ops,
                 get_preset=get_preset, make_vfl_dataset=make_vfl_dataset,
                 InferenceSession=InferenceSession, ServeConfig=ServeConfig,
                 Trainer=Trainer, GlasuSampler=GlasuSampler,
-                sample_rounds=sample_rounds, batch_to_device=batch_to_device,
+                sample_rounds=sample_rounds, unstack_round=unstack_round,
+                batch_to_device=batch_to_device,
                 make_optimizer=make_optimizer, tree_leaves=tree_leaves,
                 tree_map=tree_map)
-    serve_launches, serve_captured = phase_slice(torch, np, mods)
+    served = {kernel: phase_slice(torch, np, mods, name, kernel)
+              for name, kernel in SERVE_PRESETS.items()}
     trained = phase_train(torch, mods)
-    phase_result(torch, graph_agg, trained, serve_launches, serve_captured,
+    phase_result(torch, graph_agg, trained, served,
                  get_preset("cora-gcnii-glasu").n_layers)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

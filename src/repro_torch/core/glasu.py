@@ -10,11 +10,10 @@ owner), the served-query forward and exact chunked full-graph inference.
 The M clients are a written-out leading axis on every parameter and
 activation tensor (the reference ``jax.vmap``s over it); aggregation is a
 reduction over that axis — the only place information crosses clients.
-On CUDA the GCN and GCNII sub-layers always run the hand-written kernels
-(``kernels.ops.graph_agg`` / ``gcnii_layer``, one launch for all clients,
-forward and backward); the GAT kernel is not ported yet, so that backbone
-raises on CUDA rather than run plain code on the card. On the CPU every
-backbone runs plain PyTorch.
+On CUDA the GCN, GCNII and GAT sub-layers always run the hand-written
+kernels (``kernels.ops.graph_agg`` / ``gcnii_layer`` / ``gat_layer``, one
+call for all clients, forward and backward); on the CPU every backbone
+runs the kernels' plain PyTorch versions through the same ops.
 
 Where the reference ``vmap``s ``value_and_grad`` over clients, a local step
 here runs all M trunks stacked and backpropagates the SUM of the M
@@ -120,10 +119,11 @@ def _linear(p, x):
 
 def _client_layer(cfg: GlasuConfig, l: int):
     """Layer l's client-stacked sub-layer ``(p, h, h0, idx, mask) -> (M,
-    n_dst, hidden)``. GCNII goes through ``ops.gcnii_layer`` and GCN through
-    ``ops.graph_agg`` + bias + relu (the reference's ``_pallas_gcn_layer``):
-    the kernels on CUDA, the plain versions on the CPU, whatever
-    ``use_pallas`` says."""
+    n_dst, hidden)``. GCNII goes through ``ops.gcnii_layer``, GAT through
+    ``ops.gat_layer`` (the reference's ``_pallas_gat_layer``) and GCN
+    through ``ops.graph_agg`` + bias + relu (``_pallas_gcn_layer``): the
+    kernels on CUDA, the plain versions on the CPU, whatever ``use_pallas``
+    says."""
     if cfg.backbone == "gcnii":
         alpha = cfg.gcnii_alpha
         beta = cfg.gcnii_beta / (l + 1)   # beta_l = lambda / l decay as in [7]
@@ -132,22 +132,18 @@ def _client_layer(cfg: GlasuConfig, l: int):
             return ops.gcnii_layer(h, h0, idx, mask, p["W"], p["b"],
                                    alpha=alpha, beta=beta)
         return gcnii
-    if cfg.backbone == "gcn":
-        def gcn(p, h, h0, idx, mask):
-            return torch.relu(ops.graph_agg(h, idx, mask, p["W"])
-                              + p["b"][:, None, :])
-        return gcn
-    _, layer_fn = BACKBONES[cfg.backbone]
+    if cfg.backbone == "gat":
+        def gat(p, h, h0, idx, mask):
+            return ops.gat_layer(h, idx, mask, p["W"], p["a_src"],
+                                 p["a_dst"], p["b"])
+        return gat
+    if cfg.backbone != "gcn":
+        raise ValueError(f"unknown backbone {cfg.backbone!r}")
 
-    def plain(p, h, h0, idx, mask):
-        if h.device.type != "cpu":
-            raise NotImplementedError(
-                f"the {cfg.backbone} backbone has no CUDA kernel in the port "
-                "(kernel not ported yet); run it with device='cpu'")
-        return torch.stack([
-            layer_fn({k: v[i] for k, v in p.items()}, h[i], h0[i], idx[i],
-                     mask[i]) for i in range(h.shape[0])])
-    return plain
+    def gcn(p, h, h0, idx, mask):
+        return torch.relu(ops.graph_agg(h, idx, mask, p["W"])
+                          + p["b"][:, None, :])
+    return gcn
 
 
 def _aggregate(cfg: GlasuConfig, h_plus, generator=None):

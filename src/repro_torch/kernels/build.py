@@ -28,6 +28,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each kernel's entry point: (symbol, argtypes); every entry
 # point returns the cudaError_t of its launch as an int
 SIGNATURES = {
+    "gat_layer": ("gat_layer_launch",
+                  [_P, _P, _P, _P, _P, _P, _P,          # h idx mask w a_src a_dst b
+                   _P, _P, _P, _P, _P,                  # out wh scores p x
+                   _I, _I, _I, _I, _I, _I, _I,          # m n_src n_dst f1 d H dh
+                   _I, _P]),                            # device stream
     "gcnii_layer": ("gcnii_layer_launch",
                     [_P, _P, _P, _P, _P, _P, _P, _P,    # h h0 idx mask w b out z
                      _I, _I, _I, _I, _I,                # m n_src n_dst f1 d

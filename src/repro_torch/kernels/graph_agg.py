@@ -7,17 +7,21 @@ version of the same client-stacked function:
 
     GCN    mean = masked-mean_f h[idx];  mean @ W       (bias, relu outside)
     GCNII  z = (1-a)·mean + a·H0[self];  relu((1-b)·z + b·(z @ W) + b)
+    GAT    wh = h @ W;  per head, att = masked softmax_f of
+           leaky_relu(a_src·wh[self] + a_dst·wh[idx]);  elu(att·wh[idx] + b)
 
-``graph_agg_cuda`` and ``gcnii_layer_cuda`` launch ``csrc/graph_agg.cu`` and
-``csrc/gcnii_layer.cu`` and accept only what those kernels read correctly:
-contiguous float32/int32 CUDA tensors of one device. They raise on anything
-else and on a failed launch; they never fall back to the plain version.
-With ``save=True`` each also returns the intermediate its backward needs
-(the masked mean for GCN, z for GCNII), written by the kernel itself. Each
-``.launches`` counts its wrapper's launches, so a run can show that a path
-went through the kernel.
+``graph_agg_cuda``, ``gcnii_layer_cuda`` and ``gat_layer_cuda`` launch
+``csrc/graph_agg.cu``, ``csrc/gcnii_layer.cu`` and ``csrc/gat_layer.cu``
+and accept only what those kernels read correctly: contiguous
+float32/int32 CUDA tensors of one device. They raise on anything else and
+on a failed launch; they never fall back to the plain version. With
+``save=True`` each also returns the intermediates its backward needs (the
+masked mean for GCN, z for GCNII; wh, the softmax and the pre-activation
+logits for GAT), written by the kernel itself. Each ``.launches`` counts
+its wrapper's launches (one per call, whatever the kernel's internal
+passes), so a run can show that a path went through the kernel.
 
-The GAT and CSR kernels of the reference are not ported yet.
+The CSR kernel of the reference is not ported yet.
 """
 from __future__ import annotations
 
@@ -62,6 +66,37 @@ def gcnii_layer_plain(h, h0, idx, mask, w, b, *, alpha: float, beta: float,
     out = torch.relu((1.0 - beta) * z + beta * torch.bmm(z, w)
                      + b[:, None, :])
     return (out, z) if save else out
+
+
+def gat_layer_plain(h, idx, mask, w, a_src, a_dst, b, *, save: bool = False):
+    """Client-stacked multi-head GAT sub-layer in plain PyTorch.
+
+    h: (M, n_src, d); idx/mask: (M, n_dst, F+1), self at column 0;
+    w: (M, d, H, dh); a_src/a_dst: (M, H, dh); b: (M, H·dh) ->
+    (M, n_dst, H·dh), head k in columns k·dh .. (k+1)·dh. Per client this
+    is exactly ``ref.gat_layer_ref``. With ``save`` it returns ``(out, wh,
+    p, x)``: wh = h @ W (M, n_src, H·dh), the softmax p before the mask
+    and the pre-activation logits x = a_src·wh[self] + a_dst·wh[idx], both
+    (M, n_dst, F+1, H).
+    """
+    m, n_src, _ = h.shape
+    n_heads, dh = a_src.shape[1:]
+    rows = torch.arange(m, device=h.device)[:, None, None]
+    idx = idx.long()
+    wh = torch.einsum("mnd,mdhk->mnhk", h, w)        # (M, n_src, H, dh)
+    wh_nb = wh[rows, idx]                            # (M, n_dst, F+1, H, dh)
+    x = (torch.einsum("mnhk,mhk->mnh", wh_nb[:, :, 0], a_src)[:, :, None]
+         + torch.einsum("mnfhk,mhk->mnfh", wh_nb, a_dst))
+    e = torch.where(mask[..., None] > 0,
+                    torch.nn.functional.leaky_relu(x, negative_slope=0.2),
+                    torch.full_like(x, -1e9))
+    p = torch.softmax(e, dim=2)
+    out = torch.einsum("mnfh,mnfhk->mnhk", p * mask[..., None], wh_nb)
+    out = torch.nn.functional.elu(
+        out.reshape(m, idx.shape[1], n_heads * dh) + b[:, None, :])
+    if save:
+        return out, wh.reshape(m, n_src, n_heads * dh), p, x
+    return out
 
 
 def _check(fn, name, t, dtype, shape, device):
@@ -179,3 +214,56 @@ def gcnii_layer_cuda(h, h0, idx, mask, w, b, *, alpha: float, beta: float,
 
 
 gcnii_layer_cuda.launches = 0
+
+
+def gat_layer_cuda(h, idx, mask, w, a_src, a_dst, b, *, save: bool = False):
+    """Client-stacked multi-head GAT sub-layer on the hand-written Hopper
+    kernel (projection and attention: two launches from one entry point).
+
+    Same contract as ``gat_layer_plain``, for any H and dh; every tensor
+    must be contiguous on one CUDA device (h, mask, w, a_src, a_dst, b
+    float32; idx int32). Outputs and the wh / score scratch are allocated
+    here and the kernel runs on the current stream.
+    """
+    fn = "gat_layer_cuda"
+    m, n_src, d, n_dst, f1, dev = _cuda_stack(fn, h, idx)
+    if w.dim() != 4 or a_src.dim() != 3:
+        raise ValueError(f"{fn}: w must be (M, d, H, dh) and a_src/a_dst "
+                         "(M, H, dh)")
+    n_heads, dh = w.shape[2], w.shape[3]
+    hd = n_heads * dh
+    _check(fn, "h", h, torch.float32, (m, n_src, d), dev)
+    _check(fn, "idx", idx, torch.int32, (m, n_dst, f1), dev)
+    _check(fn, "mask", mask, torch.float32, (m, n_dst, f1), dev)
+    _check(fn, "w", w, torch.float32, (m, d, n_heads, dh), dev)
+    _check(fn, "a_src", a_src, torch.float32, (m, n_heads, dh), dev)
+    _check(fn, "a_dst", a_dst, torch.float32, (m, n_heads, dh), dev)
+    _check(fn, "b", b, torch.float32, (m, hd), dev)
+    out = torch.empty((m, n_dst, hd), dtype=torch.float32, device=dev)
+    wh = torch.empty((m, n_src, hd), dtype=torch.float32, device=dev)
+    scores = torch.empty((m, n_src, 2, n_heads), dtype=torch.float32,
+                         device=dev)
+    p = x = None
+    if save:
+        p = torch.empty((m, n_dst, f1, n_heads), dtype=torch.float32,
+                        device=dev)
+        x = torch.empty_like(p)
+    if out.numel() == 0:
+        return (out, wh, p, x) if save else out
+    if n_src == 0 or f1 == 0 or d == 0:
+        raise ValueError(f"{fn}: empty source set, fanout or width")
+    lib = build.load("gat_layer")
+    _launch(fn, lib.gat_layer_launch(
+        h.data_ptr(), idx.data_ptr(), mask.data_ptr(), w.data_ptr(),
+        a_src.data_ptr(), a_dst.data_ptr(), b.data_ptr(), out.data_ptr(),
+        wh.data_ptr(), scores.data_ptr(), p.data_ptr() if save else None,
+        x.data_ptr() if save else None,
+        m, n_src, n_dst, f1, d, n_heads, dh, _device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream),
+        f"M={m}, n_src={n_src}, n_dst={n_dst}, F+1={f1}, d={d}, "
+        f"H={n_heads}, dh={dh}")
+    gat_layer_cuda.launches += 1
+    return (out, wh, p, x) if save else out
+
+
+gat_layer_cuda.launches = 0

@@ -7,23 +7,24 @@ else: there is no fallback from one to the other.
 GLASU trains through the client sub-layers (Alg 4's LocalUpdate), so each
 op is a ``torch.autograd.Function``. Its forward is the kernel (or the plain
 version on the CPU); when a gradient is needed the forward also writes the
-intermediate the backward needs (the masked mean for GCN, z for GCNII), so
-the backward never re-runs a forward. The backward is one explicit
-function per op, the same code on both devices: the VJP of the oracle
-(``ref.graph_agg_ref``, ``ref.gcnii_layer_ref``), which the reference takes
-with ``jax.vjp`` in XLA outside any Pallas kernel. Its products are
-``torch.bmm`` and the gather's transpose is an accumulating ``index_put_``,
-which adds every duplicate source and scales by the mask (masked slots add
-zero). On CUDA that accumulation sorts the indices instead of using
-atomics, so a run on the card is reproducible. ``idx`` and ``mask`` get no
-gradient.
+intermediates the backward needs (the masked mean for GCN, z for GCNII;
+wh, the softmax and the pre-activation logits for GAT), so the backward
+never re-runs a forward. The backward is one explicit function per op, the
+same code on both devices: the VJP of the oracle (``ref.graph_agg_ref``,
+``ref.gcnii_layer_ref``, ``ref.gat_layer_ref``), which the reference takes
+with ``jax.vjp`` in XLA outside any Pallas kernel (it has no backward
+kernel). Its products are ``torch.bmm`` and the gather's transpose is an
+accumulating ``index_put_``, which adds every duplicate source and scales
+by the mask (masked slots add zero). On CUDA that accumulation sorts the
+indices instead of using atomics, so a run on the card is reproducible.
+``idx`` and ``mask`` get no gradient.
 """
 from __future__ import annotations
 
 import torch
 
-from .graph_agg import (gcnii_layer_cuda, gcnii_layer_plain, graph_agg_cuda,
-                        graph_agg_plain)
+from .graph_agg import (gat_layer_cuda, gat_layer_plain, gcnii_layer_cuda,
+                        gcnii_layer_plain, graph_agg_cuda, graph_agg_plain)
 
 # Source-set size from which the reference dispatches graph_agg to its CSR
 # segment-sum kernel (repro.kernels.ops). That kernel is not ported: on
@@ -38,17 +39,23 @@ def _device(name, h):
     return kind
 
 
+def _scatter_rows(n_src, idx, contrib):
+    """``dh[m, idx[m, r, f]] += contrib[m, r, f]`` over every (r, f),
+    duplicates added. idx: (M, n_dst, F'); contrib: (M, n_dst, F', d) ->
+    (M, n_src, d)."""
+    m, d = contrib.shape[0], contrib.shape[-1]
+    base = torch.arange(m, device=contrib.device)[:, None, None] * n_src
+    flat = (idx.long() + base).reshape(-1)
+    dh = torch.zeros(m * n_src, d, dtype=contrib.dtype, device=contrib.device)
+    dh.index_put_((flat,), contrib.reshape(-1, d), accumulate=True)
+    return dh.view(m, n_src, d)
+
+
 def _gather_transpose(n_src, idx, coef, g):
     """Transpose of the client-stacked gather: ``dh[m, idx[m, r, f]] +=
     coef[m, r, f] * g[m, r]`` over every (r, f), duplicates added.
     idx/coef: (M, n_dst, F+1); g: (M, n_dst, d) -> (M, n_src, d)."""
-    m, _, d = g.shape
-    base = torch.arange(m, device=g.device)[:, None, None] * n_src
-    flat = (idx.long() + base).reshape(-1)
-    contrib = (coef[..., None] * g[:, :, None, :]).reshape(-1, d)
-    dh = torch.zeros(m * n_src, d, dtype=g.dtype, device=g.device)
-    dh.index_put_((flat,), contrib, accumulate=True)
-    return dh.view(m, n_src, d)
+    return _scatter_rows(n_src, idx, coef[..., None] * g[:, :, None, :])
 
 
 def _inv_denom(mask):
@@ -162,3 +169,86 @@ def gcnii_layer(h, h0, idx, mask, w, b, *, alpha: float, beta: float):
         return gcnii_layer_cuda(h, h0, idx, mask, w, b, alpha=alpha,
                                 beta=beta)
     return gcnii_layer_plain(h, h0, idx, mask, w, b, alpha=alpha, beta=beta)
+
+
+# ---------------------------------------------------------------------- GAT
+def gat_layer_backward(h, idx, mask, w, a_src, a_dst, wh, p, x, out, g,
+                       needs=(True, True, True, True, True)):
+    """VJP of ``gat_layer`` with the saved wh (M, n_src, H·dh), softmax p
+    and pre-activation logits x (M, n_dst, F+1, H) and output: ``(dh, dw,
+    da_src, da_dst, db)`` for ``needs`` = which of (h, w, a_src, a_dst, b)
+    need one (None elsewhere). elu' is read from the output (1 where it is
+    > 0, else out + 1 = exp(y)) and leaky_relu' from x (1 where x >= 0, as
+    the reference's ``jnp.where(x >= 0, ...)``). The self score reads
+    wh[idx[:, :, 0]] unmasked, so its gradient reaches that row even where
+    mask[:, :, 0] = 0; neighbour and self terms go through one
+    accumulating scatter."""
+    need_h, need_w, need_as, need_ad, need_b = needs
+    m, n_src, d = h.shape
+    n_heads, dh_ = a_src.shape[1:]
+    n_dst, f1 = idx.shape[1:]
+    gy = g * torch.where(out > 0, torch.ones_like(out), out + 1.0)
+    db = torch.sum(gy, dim=1) if need_b else None
+    da_src = da_dst = dh = dw = None
+    if not (need_h or need_w or need_as or need_ad):
+        return dh, dw, da_src, da_dst, db
+    rows = torch.arange(m, device=h.device)[:, None, None]
+    wh4 = wh.view(m, n_src, n_heads, dh_)
+    wh_nb = wh4[rows, idx.long()]                       # (M, n_dst, F+1, H, dh)
+    go = gy.view(m, n_dst, n_heads, dh_)
+    maskh = mask[..., None]
+    datt = torch.einsum("mnhk,mnfhk->mnfh", go, wh_nb)
+    dp = datt * maskh
+    de = p * (dp - torch.sum(p * dp, dim=2, keepdim=True))
+    slope = torch.where(x >= 0, torch.ones_like(x), torch.full_like(x, 0.2))
+    dx = torch.where(maskh > 0, de, torch.zeros_like(de)) * slope
+    ds_self = torch.sum(dx, dim=2)                      # (M, n_dst, H)
+    if need_as:
+        da_src = torch.einsum("mnh,mnhk->mhk", ds_self, wh_nb[:, :, 0])
+    if need_ad:
+        da_dst = torch.einsum("mnfh,mnfhk->mhk", dx, wh_nb)
+    if need_h or need_w:
+        dwh_nb = ((p * maskh)[..., None] * go[:, :, None]
+                  + dx[..., None] * a_dst[:, None, None])
+        dwh_self = ds_self[..., None] * a_src[:, None]   # (M, n_dst, H, dh)
+        contrib = torch.cat([dwh_nb, dwh_self[:, :, None]], dim=2)
+        dwh = _scatter_rows(n_src, torch.cat([idx, idx[:, :, :1]], dim=2),
+                            contrib.reshape(m, n_dst, f1 + 1,
+                                            n_heads * dh_))
+        if need_w:
+            dw = torch.bmm(h.transpose(1, 2), dwh).view(w.shape)
+        if need_h:
+            dh = torch.bmm(dwh, w.reshape(m, d, n_heads * dh_)
+                           .transpose(1, 2))
+    return dh, dw, da_src, da_dst, db
+
+
+class _GatLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, idx, mask, w, a_src, a_dst, b):
+        fwd = gat_layer_cuda if h.device.type == "cuda" else gat_layer_plain
+        out, wh, p, x = fwd(h, idx, mask, w, a_src, a_dst, b, save=True)
+        ctx.save_for_backward(h, idx, mask, w, a_src, a_dst, wh, p, x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.needs_input_grad
+        dh, dw, da_src, da_dst, db = gat_layer_backward(
+            *ctx.saved_tensors, g.contiguous(), (n[0], n[3], n[4], n[5], n[6]))
+        return dh, None, None, dw, da_src, da_dst, db
+
+
+def gat_layer(h, idx, mask, w, a_src, a_dst, b):
+    """Fused multi-head GAT sub-layer over the client stack: projection +
+    masked softmax attention over the fanout + head mix + elu.
+    h: (M, n_src, d); idx/mask: (M, n_dst, F+1), self at column 0;
+    w: (M, d, H, dh); a_src/a_dst: (M, H, dh); b: (M, H·dh) ->
+    (M, n_dst, H·dh). Differentiable in h, w, a_src, a_dst and b."""
+    kind = _device("gat_layer", h)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (h, w, a_src, a_dst, b)):
+        return _GatLayer.apply(h, idx, mask, w, a_src, a_dst, b)
+    if kind == "cuda":
+        return gat_layer_cuda(h, idx, mask, w, a_src, a_dst, b)
+    return gat_layer_plain(h, idx, mask, w, a_src, a_dst, b)

@@ -50,5 +50,34 @@ GCN_CASES = [
 ]
 
 
+def gat_inputs(seed, m, n_src, n_dst, f1, d, heads, dh, case="plain"):
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(m, n_src, d)).astype(np.float32)
+    idx = rng.integers(0, n_src, size=(m, n_dst, f1)).astype(np.int32)
+    mask = (rng.random((m, n_dst, f1)) < 0.8).astype(np.float32)
+    mask[:, :, 0] = 1.0                      # self column, as the plans set it
+    if case == "masked":
+        mask[:, ::3, :] = 0.0                # fully-masked rows: out = elu(b)
+        mask[:, 1::3, 0] = 0.0               # self masked, its score still read
+    w = (rng.normal(size=(m, d, heads, dh)) * 0.2).astype(np.float32)
+    a_src = (rng.normal(size=(m, heads, dh)) * 0.1).astype(np.float32)
+    a_dst = (rng.normal(size=(m, heads, dh)) * 0.1).astype(np.float32)
+    b = (rng.normal(size=(m, heads * dh)) * 0.1).astype(np.float32)
+    return h, idx, mask, w, a_src, a_dst, b
+
+
+GAT_CASES = [
+    # m, n_src, n_dst, f1, d, heads, dh, case: the reference's kernel-test
+    # shapes (tests/test_kernels.py), then masked rows at the main path's
+    # widths
+    (2, 64, 32, 5, 16, 2, 8, "plain"),
+    (3, 300, 130, 4, 64, 2, 32, "plain"),    # n_dst % 128 != 0
+    (2, 256, 77, 5, 96, 4, 16, "plain"),     # 4 heads
+    (2, 200, 129, 9, 48, 1, 64, "plain"),    # one head, dh = 64, wide fanout
+    (3, 90, 77, 4, 64, 2, 32, "masked"),     # all-masked rows, mask[:, 0] = 0
+    (3, 120, 40, 33, 64, 2, 32, "masked"),   # the eval fanout, W = 33 > 32
+]
+
+
 def cotangent(seed, shape):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)

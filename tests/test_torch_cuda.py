@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import ExperimentConfig
+from repro_torch.api import ExperimentConfig, get_preset
 from repro_torch.core import glasu
 from repro_torch.graph.prefetch import sample_rounds
 from repro_torch.graph.sampler import GlasuSampler, batch_to_device
@@ -24,8 +24,8 @@ from repro_torch.graph.synth import make_vfl_dataset
 from repro_torch.kernels import graph_agg, ops
 from repro_torch.tree import tree_leaves, tree_map
 
-from _torch_inputs import (GCN_CASES, GCNII_CASES, cotangent, gcn_inputs,
-                           gcnii_inputs)
+from _torch_inputs import (GAT_CASES, GCN_CASES, GCNII_CASES, cotangent,
+                           gat_inputs, gcn_inputs, gcnii_inputs)
 
 CARD_TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -133,8 +133,12 @@ def test_graph_agg_csr_size_raises_on_cuda(cuda_device, monkeypatch):
     assert graph_agg.graph_agg_cuda.launches == before
 
 
+KERNELS = {"gcn": "graph_agg_cuda", "gcnii": "gcnii_layer_cuda",
+           "gat": "gat_layer_cuda"}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("backbone", ["gcn", "gcnii"])
+@pytest.mark.parametrize("backbone", ["gcn", "gcnii", "gat"])
 def test_training_rounds_on_card_match_cpu(cuda_device, backbone):
     """Two SGD rounds (Q = 2) from the same parameters and batches on the
     card and on the CPU; the card's rounds go through the kernels."""
@@ -148,8 +152,7 @@ def test_training_rounds_on_card_match_cpu(cuda_device, backbone):
     p0 = glasu.init_params(torch.Generator().manual_seed(0), mcfg, "cpu")
     opt = cfg.make_optimizer()
     step = glasu.make_multi_round_fn(mcfg, opt, 2)
-    kernel = graph_agg.graph_agg_cuda if backbone == "gcn" \
-        else graph_agg.gcnii_layer_cuda
+    kernel = getattr(graph_agg, KERNELS[backbone])
     out = {}
     for dev in (cuda_device, torch.device("cpu")):
         before = kernel.launches
@@ -163,3 +166,69 @@ def test_training_rounds_on_card_match_cpu(cuda_device, backbone):
     for a, b in zip(pc, pp):
         torch.testing.assert_close(a, b, **CARD_TOL)
     assert np.isfinite(lc.numpy()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n_src,n_dst,f1,d,heads,dh,case", GAT_CASES)
+def test_gat_cuda_kernel_matches_plain(cuda_device, m, n_src, n_dst, f1, d,
+                                       heads, dh, case):
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in gat_inputs(8, m, n_src, n_dst, f1, d, heads, dh, case)]
+    before = graph_agg.gat_layer_cuda.launches
+    got = graph_agg.gat_layer_cuda(*args, save=True)
+    torch.cuda.synchronize()
+    assert graph_agg.gat_layer_cuda.launches == before + 1
+    want = graph_agg.gat_layer_plain(*args, save=True)
+    for a, b in zip(got, want):              # out, wh, softmax, logits
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    assert torch.equal(graph_agg.gat_layer_cuda(*args), got[0])
+    with pytest.raises(TypeError, match="int32"):
+        graph_agg.gat_layer_cuda(args[0], args[1].long(), *args[2:])
+
+
+@pytest.mark.cuda
+def test_gat_card_gradients_match_cpu(cuda_device):
+    x = gat_inputs(13, 3, 200, 130, 4, 64, 2, 32, "masked")
+    g = torch.from_numpy(cotangent(14, (3, 130, 64)))
+
+    def grads(dev):
+        leaves = [torch.from_numpy(x[i]).to(dev).requires_grad_(True)
+                  for i in (0, 3, 4, 5, 6)]
+        out = ops.gat_layer(leaves[0], torch.from_numpy(x[1]).to(dev),
+                            torch.from_numpy(x[2]).to(dev), *leaves[1:])
+        return [t.cpu() for t in torch.autograd.grad(out, leaves, g.to(dev))]
+
+    before = graph_agg.gat_layer_cuda.launches
+    card = grads(cuda_device)
+    assert graph_agg.gat_layer_cuda.launches == before + 1
+    for a, b in zip(card, grads("cpu")):
+        torch.testing.assert_close(a, b, **CARD_TOL)
+
+
+@pytest.mark.cuda
+def test_cora_gat_rounds_on_card_match_cpu(cuda_device):
+    """Two SGD rounds of the cora-gat-glasu preset at full width (M = 3,
+    L = 4, hidden 64, 2 heads, Q = 4, layer sizes 512/512/512/64/16) from
+    the same parameters and batches on the card and on the CPU."""
+    cfg = get_preset("cora-gat-glasu").with_(optimizer="sgd")
+    data = make_vfl_dataset(cfg.dataset, n_clients=cfg.n_clients,
+                            seed=cfg.seed)
+    mcfg = cfg.glasu_config(data)
+    host = sample_rounds(GlasuSampler(data, cfg.sampler_config(), seed=1), 2)
+    p0 = glasu.init_params(torch.Generator().manual_seed(1), mcfg, "cpu")
+    opt = cfg.make_optimizer()
+    step = glasu.make_multi_round_fn(mcfg, opt, 2)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        before = graph_agg.gat_layer_cuda.launches
+        p = tree_map(lambda t: t.to(dev), p0)
+        p, _, losses = step(p, opt.init(p), batch_to_device(host, dev))
+        out[dev.type] = (tree_leaves(tree_map(lambda t: t.cpu(), p)),
+                         losses.cpu(),
+                         graph_agg.gat_layer_cuda.launches - before)
+    (pc, lc, launches), (pp, lp, none) = out["cuda"], out["cpu"]
+    assert launches == 2 * (1 + mcfg.n_local_steps) * mcfg.n_layers
+    assert none == 0
+    torch.testing.assert_close(lc, lp, **CARD_TOL)
+    for a, b in zip(pc, pp):
+        torch.testing.assert_close(a, b, **CARD_TOL)

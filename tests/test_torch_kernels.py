@@ -1,4 +1,5 @@
-"""Port parity: the GCN and GCNII layers and the backbone oracles against JAX.
+"""Port parity: the GCN, GCNII and GAT layers and the backbone oracles
+against JAX.
 
 The same numpy inputs go through ``repro``'s Pallas kernels (interpret mode
 on the CPU, as ``tests/test_kernels.py`` runs them) and its jnp oracles, and
@@ -24,8 +25,8 @@ from repro_torch.kernels import graph_agg, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import gnn as tgnn
 
-from _torch_inputs import (GCN_CASES, GCNII_CASES, cotangent, gcn_inputs,
-                           gcnii_inputs)
+from _torch_inputs import (GAT_CASES, GCN_CASES, GCNII_CASES, cotangent,
+                           gat_inputs, gcn_inputs, gcnii_inputs)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 GAT_TOL = dict(rtol=3e-5, atol=3e-5)
@@ -69,6 +70,11 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.gcnii_layer(*(torch.empty(1, 1, 1, device="meta")
                           for _ in range(6)), alpha=0.1, beta=0.5)
+    gat = list(map(torch.from_numpy, gat_inputs(2, 1, 10, 4, 3, 8, 2, 4)))
+    before = graph_agg.gat_layer_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        graph_agg.gat_layer_cuda(*gat)
+    assert graph_agg.gat_layer_cuda.launches == before
 
 
 def test_build_names_library_by_source_hash(tmp_path, monkeypatch):
@@ -273,3 +279,84 @@ def test_graph_agg_refuses_csr_size_on_cuda_only(monkeypatch):
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.graph_agg(*(torch.empty(1, 1, 1, device="meta")
                         for _ in range(4)))
+
+
+
+# ------------------------------------------------------------ the GAT kernel
+@pytest.mark.parametrize("m,n_src,n_dst,f1,d,heads,dh,case", GAT_CASES)
+def test_gat_plain_matches_pallas_and_oracle(m, n_src, n_dst, f1, d, heads,
+                                             dh, case):
+    x = gat_inputs(0, m, n_src, n_dst, f1, d, heads, dh, case)
+    got = graph_agg.gat_layer_plain(*map(torch.from_numpy, x))
+    assert got.shape == (m, n_dst, heads * dh)
+    assert torch.equal(ops.gat_layer(*map(torch.from_numpy, x)), got)
+    for c in range(m):
+        args = tuple(jnp.asarray(a[c]) for a in x)
+        pallas = ref_graph_agg.gat_layer_pallas(*args, interpret=True)
+        oracle = jref.gat_layer_ref(*args)
+        np.testing.assert_allclose(got[c].numpy(), np.asarray(pallas),
+                                   **GAT_TOL)
+        np.testing.assert_allclose(got[c].numpy(), np.asarray(oracle),
+                                   **GAT_TOL)
+    if case == "masked":                     # all-masked rows: elu(b), finite
+        b = torch.from_numpy(x[6])
+        torch.testing.assert_close(
+            got[:, ::3], torch.nn.functional.elu(b)[:, None].expand(
+                -1, got[:, ::3].shape[1], -1), rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("m,n_src,n_dst,f1,d,heads,dh,case",
+                         [GAT_CASES[i] for i in (1, 2, 4, 5)])
+def test_gat_gradients_match_jax_vjp(m, n_src, n_dst, f1, d, heads, dh,
+                                     case):
+    h, idx, mask, w, a_src, a_dst, b = gat_inputs(3, m, n_src, n_dst, f1, d,
+                                                  heads, dh, case)
+    idx[:, :, 1] = idx[:, :, 0]              # a source repeated in the fanout
+    g = cotangent(4, (m, n_dst, heads * dh))
+    leaves = [torch.from_numpy(x).requires_grad_(True)
+              for x in (h, w, a_src, a_dst, b)]
+    out = ops.gat_layer(leaves[0], torch.from_numpy(idx),
+                        torch.from_numpy(mask), *leaves[1:])
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    for c in range(m):
+        ic, mc = jnp.asarray(idx[c]), jnp.asarray(mask[c])
+        _, vjp = jax.vjp(lambda hh, ww, s, t, bb: jref.gat_layer_ref(
+            hh, ic, mc, ww, s, t, bb),
+            *(jnp.asarray(x[c]) for x in (h, w, a_src, a_dst, b)))
+        for got, want in zip(grads, vjp(jnp.asarray(g[c]))):
+            np.testing.assert_allclose(got[c].numpy(), np.asarray(want),
+                                       **GAT_TOL)
+
+
+def test_gat_gradcheck_float64_and_saved_intermediates():
+    rng = np.random.default_rng(6)
+    m, n_src, n_dst, f1, d, heads, dh = 2, 10, 6, 4, 5, 2, 3
+    idx = torch.from_numpy(rng.integers(0, n_src, size=(m, n_dst, f1))
+                           .astype(np.int32))
+    mask = torch.from_numpy((rng.random((m, n_dst, f1)) < 0.7)
+                            .astype(np.float32)).double()
+    mask[:, :, 0] = 1.0
+    mask[:, 0, :] = 0.0                      # all-masked row
+    mask[:, 1, 0] = 0.0                      # self masked, score still read
+    leaf = lambda *s: torch.from_numpy(rng.normal(size=s)).requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda h, w, s, t, b: ops.gat_layer(h, idx, mask, w, s, t, b),
+        (leaf(m, n_src, d), leaf(m, d, heads, dh), leaf(m, heads, dh),
+         leaf(m, heads, dh), leaf(m, heads * dh)))
+    h, _, _, w, s, t, b = (torch.from_numpy(x) for x in gat_inputs(
+        7, m, n_src, n_dst, f1, d, heads, dh))
+    out, wh, p, x = graph_agg.gat_layer_plain(h, idx, mask.float(), w, s, t,
+                                              b, save=True)
+    assert torch.equal(out, graph_agg.gat_layer_plain(
+        h, idx, mask.float(), w, s, t, b))
+    assert wh.shape == (m, n_src, heads * dh)
+    assert p.shape == x.shape == (m, n_dst, f1, heads)
+    torch.testing.assert_close(p.sum(dim=2), torch.ones(m, n_dst, heads))
+    # the backward reads only saved values: idx and mask get no gradient
+    th = h.clone().requires_grad_(True)
+    y = ops.gat_layer(th, idx, mask.float(), w, s, t, b)
+    assert y.grad_fn.next_functions[1][0] is None
+    dh_, dw, da_s, da_d, db = ops.gat_layer_backward(
+        h, idx, mask.float(), w, s, t, wh, p, x, out, torch.ones_like(out),
+        needs=(False, False, False, False, True))
+    assert dh_ is dw is da_s is da_d is None and db.shape == b.shape

@@ -122,21 +122,24 @@ def test_unported_serve_options_raise(world):
                             compressor=object())
 
 
-def test_gcn_and_gat_refuse_the_card(world):
-    """GAT has no ported kernel and raises on any non-CPU tensor; GCN runs
-    its kernel on CUDA and raises on any other non-CPU device. A meta
-    tensor stands in for the card here."""
+@pytest.mark.parametrize("backbone", ["gcn", "gat"])
+def test_gcn_and_gat_refuse_the_card(backbone):
+    """Both backbones run their kernels on CUDA and raise on any other
+    non-CPU device rather than run plain code there. A meta tensor stands
+    in for such a device here."""
     h = torch.empty(3, 10, 8, device="meta")
     idx = torch.empty(3, 4, 2, dtype=torch.int32, device="meta")
     p = {"W": torch.empty(3, 8, 8, device="meta"),
          "b": torch.empty(3, 8, device="meta")}
-    for backbone, err, match in (
-            ("gat", NotImplementedError, "kernel not ported yet"),
-            ("gcn", ValueError, "no kernel for device meta")):
-        mcfg = glasu.GlasuConfig(backbone=backbone, hidden=8, d_in=8)
-        layer = glasu._client_layer(mcfg, 0)
-        with pytest.raises(err, match=match):
-            layer(p, h, h, idx, idx.float())
+    if backbone == "gat":
+        p = {"W": torch.empty(3, 8, 2, 4, device="meta"),
+             "a_src": torch.empty(3, 2, 4, device="meta"),
+             "a_dst": torch.empty(3, 2, 4, device="meta"),
+             "b": torch.empty(3, 8, device="meta")}
+    mcfg = glasu.GlasuConfig(backbone=backbone, hidden=8, d_in=8)
+    layer = glasu._client_layer(mcfg, 0)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        layer(p, h, h, idx, idx.float())
 
 
 # ------------------------------------------------------------ core forward
@@ -213,7 +216,7 @@ def _ref_eval_tables(world):
     return _eval_tables(world["ref_data"], cfg.eval_table_cap, cfg.seed)
 
 
-@pytest.mark.parametrize("backbone", ["gcn"])
+@pytest.mark.parametrize("backbone", ["gcn", "gat"])
 def test_plain_backbones_match_reference_on_cpu(backbone):
     ref_cfg = RefConfig(**_kw(backbone=backbone))
     pt_cfg = ExperimentConfig(**_kw(backbone=backbone))
@@ -259,6 +262,35 @@ def test_session_matches_reference(world):
     assert pt.cache.evictions == ref.cache.evictions
     assert pt.metrics.summary()["wire_bytes"] == \
         ref.metrics.summary()["wire_bytes"]
+
+
+def test_gat_session_matches_reference():
+    """A GAT session against the reference's: logits, byte bills, cache
+    counters; then warm answers bitwise equal to cold ones and precompute
+    against the reference's full-graph logits (chunks with pad rows)."""
+    kw = _kw(backbone="gat")
+    ref_cfg, pt_cfg = RefConfig(**kw), ExperimentConfig(**kw)
+    ref_data, pt_data = ref_make_dataset("tiny"), make_vfl_dataset("tiny")
+    np_params = _numpy_params(ref_cfg.glasu_config(ref_data), 6)
+    serve = dict(max_batch=8, cache_entries=64)
+    ref = RefSession(jax.tree.map(jnp.asarray, np_params), ref_cfg, ref_data,
+                     serve=RefServeConfig(**serve))
+    pt = InferenceSession(checkpoint.params_from_numpy(np_params, "cpu"),
+                          pt_cfg, pt_data, serve=ServeConfig(**serve),
+                          device="cpu")
+    for q in ([3, 1, 2, 3], [3, 1, 2], [2, 3, 17, 40, 41],
+              list(range(100, 119)), [1, 2, 3]):
+        a, b = pt.answer(q), ref.answer(q)
+        _assert_answers_match(a, b)
+    assert (pt.cache.hits, pt.cache.evictions) == \
+        (ref.cache.hits, ref.cache.evictions)
+    assert pt.metrics.summary()["wire_bytes"] == \
+        ref.metrics.summary()["wire_bytes"]
+    cold = pt.answer([50, 60])
+    warm = pt.answer([50, 60])
+    assert cold.cold and not warm.cold and warm.wire_bytes == 0
+    np.testing.assert_array_equal(cold.logits, warm.logits)
+    _close(pt.precompute(chunk=100), ref.precompute(chunk=100))
 
 
 def test_session_warm_is_bitwise_cold(world):

@@ -154,6 +154,7 @@ def _kw(**kw):
 ROUND_CONFIGS = {
     "gcnii-mean": dict(),
     "gcn-mean": dict(backbone="gcn"),
+    "gat-mean": dict(backbone="gat"),
     "gcn-concat-labels0": dict(backbone="gcn", agg="concat",
                                labels_at_client=0),
     "standalone": dict(method="standalone"),
@@ -426,7 +427,7 @@ def test_trainer_with_privacy_hooks_is_reproducible():
 
 # ---------------------------------------------------------------- isolation
 @pytest.mark.parametrize("labels_at_client", [None, 0])
-@pytest.mark.parametrize("backbone", ["gcnii", "gcn"])
+@pytest.mark.parametrize("backbone", ["gcnii", "gcn", "gat"])
 def test_local_update_keeps_clients_isolated(backbone, labels_at_client):
     w = _bind(_kw(backbone=backbone, labels_at_client=labels_at_client))
     (batch,) = _rounds(w, 1)
