@@ -11,14 +11,17 @@ Phases, each printing its own lines:
             the sources in this checkout (``src/repro_torch/kernels/csrc``,
             one nvcc per source, all started together) and prints the build
             seconds and ptxas' register/shared-memory report;
-3. kernels  holds each kernel (GCNII, GCN, GAT) against its plain PyTorch
-            version on the card at the serving, training and eval shapes
-            and on ragged and masked shapes, max abs error <= 1e-5 (fp32,
-            sums in another order), and times both with CUDA events (median
-            of 30 after warm-up) beside the least time the card could take;
-            then each op's gradients on the card against the CPU's at
-            rtol = atol = 1e-4 (cuBLAS sums the backward's products in
-            another order) and the backward's device time;
+3. kernels  holds each kernel (GCNII, GCN, GAT, CSR) against its plain
+            PyTorch version on the card at the serving, training and eval
+            shapes and on ragged and masked shapes (for CSR: the
+            million-node serving shape, a planned ragged CSR with weights
+            summing below 1, an empty graph, n_src = 16384, a hub tile and
+            shuffled slabs), max abs error <= 1e-5 (fp32, sums in another
+            order), and times both with CUDA events (median of 30 after
+            warm-up) beside the least time the card could take; then each
+            op's gradients on the card against the CPU's at rtol = atol =
+            1e-4 (cuBLAS sums the backward's products in another order) and
+            the backward's device time;
 4. slice    serves ``cora-gcnii-glasu`` and ``cora-gat-glasu`` at full
             width (M = 3, L = 4, hidden 64, d_in 478) from seeded random
             parameters: a 16-query cold answer, the same query warm (bitwise
@@ -33,7 +36,17 @@ Phases, each printing its own lines:
             same parameters and batches on the card and on the CPU; rounds/s
             on the host clock, where a round's time goes, and one profiled
             round's device-busy time and idle share;
-6. result   one JSON line listing every kernel, then the final JSON line.
+6. powerlaw builds ``powerlaw-1m`` (2^20 nodes, its 268 MB feature file in
+            a temporary directory removed at exit), trains
+            ``powerlaw1m-gcn-glasu`` for its 50 rounds (finite losses, the
+            reference's 422,400 comm bytes, no CSR launch) and serves the
+            trained parameters from the streamed store: a cold 16-query
+            answer is one CSR launch (layer 0, 67600 -> 1040 rows) and one
+            GCN launch and bills the reference's 8320 B, its logits match
+            the CPU session's; a 1-query answer makes no CSR launch; cold
+            and warm latency, the plan build and store gather, and a
+            profiled cold answer's device busy time and idle share;
+7. result   one JSON line listing every kernel, then the final JSON line.
 
 Each path's launch counters are zeroed just before its counted run and read
 just after it: the run fails if a kernel of the path was never launched.
@@ -69,7 +82,8 @@ ADAM_LOSS_TOL = dict(rtol=2e-2, atol=2e-2)
 # 1.1 in rounds 1-4 while each round alone stays within 1.6e-3, and the
 # reference's own 200-round Adam run climbs to a loss of 62.8 at round 100
 ADAM_CHAOTIC = ("cora-gat-glasu",)
-KERNEL_WRAPPERS = ("graph_agg_cuda", "gcnii_layer_cuda", "gat_layer_cuda")
+KERNEL_WRAPPERS = ("graph_agg_cuda", "gcnii_layer_cuda", "gat_layer_cuda",
+                   "graph_agg_csr_cuda")
 # preset -> (its kernel's wrapper, least test accuracy). The reference
 # reaches 0.934 / 0.989 on the first two (seed 0) and 0.693-0.809 on the GAT
 # preset over seeds 0-4, its CPU runs; the port draws other initial
@@ -82,6 +96,16 @@ SERVE_PRESETS = {"cora-gcnii-glasu": "gcnii_layer_cuda",
                  "cora-gat-glasu": "gat_layer_cuda"}
 TRAIN_ROUNDS = None          # None: the preset's own 200 rounds
 TRAIN_COMM_BYTES = 164_736_000
+# the million-node profile: the reference's comm bytes for the preset's 50
+# rounds (its sampler's cost model, 8448 B a round; it depends on the
+# layer sizes only) and its wire bill for a cold answer to np.arange(16) *
+# 1000 (16 fresh rows at the one aggregation layer; it does not depend on
+# the parameters), both computed with the JAX package on the CPU
+POWERLAW_PRESET = "powerlaw1m-gcn-glasu"
+POWERLAW_NODES = 1 << 20
+POWERLAW_COMM_BYTES = 422_400
+POWERLAW_WIRE_BYTES = 8320
+POWERLAW_QUERY = tuple(range(0, 16000, 1000))
 # H100 SXM peaks at its full 700 W limit (NVIDIA's data sheet): device-memory
 # rate and dense fp32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -187,6 +211,29 @@ def _gat_bound(torch, h, idx, mask, w, a_src, a_dst, b):
             nbytes, flops)
 
 
+def _csr_bound(torch, h, idx_slab, seg_slab, ew_slab, w, n_dst, **_):
+    """(bound_ms, bound_by, bytes, flops) of one CSR launch on these
+    inputs: each slab read once, of h only the rows the live slots (seg in
+    [0, 128), ew != 0) name, W once, the output written once; 2 flops a
+    live slot and column for the weighted sum, one a live slot for the
+    weight sum, a divide a row and column, and the (n_dst x d)(d x d_out)
+    product."""
+    m, _, d = h.shape
+    d_out = w.shape[2]
+    live = (seg_slab >= 0) & (seg_slab < 128) & (ew_slab != 0)
+    rows_h = sum(int(torch.unique(idx_slab[c][live[c]]).numel())
+                 for c in range(m))
+    n_live = int(live.sum())
+    nbytes = (rows_h * d * 4 + 3 * idx_slab.numel() * 4 + w.numel() * 4
+              + m * n_dst * d_out * 4)
+    flops = (2 * n_live * d + n_live + m * n_dst * d
+             + 2 * m * n_dst * d * d_out)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
 def phase_device(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -204,7 +251,8 @@ def phase_device(torch):
 
 def phase_build(build):
     t0 = time.perf_counter()
-    results = build.build(["gcnii_layer", "graph_agg", "gat_layer"])
+    results = build.build(["gcnii_layer", "graph_agg", "gat_layer",
+                           "graph_agg_csr"])
     total = time.perf_counter() - t0
     for r in results:
         state = f"{r.seconds:.2f} s" if r.seconds else "already built"
@@ -433,6 +481,127 @@ GAT_LIBRARY_NOTE = ("no single PyTorch call computes masked multi-head graph "
                     "attention with its projection (scaled_dot_product_"
                     "attention takes dense q/k/v and dot-product scores, not "
                     "a gathered fanout with additive leaky-relu scores)")
+CSR_LIBRARY_NOTE = ("no single PyTorch call computes a weighted segment-mean "
+                    "fused with @W; torch.sparse.mm of the row-normalised "
+                    "adjacency then a matmul is two calls, timed as "
+                    "sparse_mm_two_calls_ms and used nowhere in the port")
+
+
+def _csr_inputs(torch, np, csr_plan, seed, n_dst, n_src, d, d_out, p_zero,
+                hub, weights, shuffle):
+    """One client's planned slab layout of a ragged CSR (weights "none",
+    "low": 0.05-0.3, so most rows sum below 1, or "rand": 0.25-1.25; slots
+    permuted within each tile with ``shuffle``), with h and W, on the card."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(1, 7, size=n_dst)
+    deg[rng.random(n_dst) < p_zero] = 0
+    if hub:
+        deg[0] = hub
+    indptr = np.zeros(n_dst + 1, np.int32)
+    indptr[1:] = np.cumsum(deg)
+    indices = rng.integers(0, n_src, size=int(indptr[-1])).astype(np.int32)
+    lo, hi = {"none": (1.0, 1.0), "low": (0.05, 0.3),
+              "rand": (0.25, 1.25)}[weights]
+    ew = (lo + (hi - lo) * rng.random(len(indices))).astype(np.float32)
+    slabs = csr_plan.plan_csr_slabs(indptr, indices, ew)[:3]
+    if shuffle:
+        n_tiles = max(1, -(-n_dst // 128))
+        slab = slabs[0].shape[0] // n_tiles
+        perm = np.concatenate([t * slab + rng.permutation(slab)
+                               for t in range(n_tiles)])
+        slabs = [x[perm] for x in slabs]
+    h = torch.from_numpy(rng.normal(size=(1, n_src, d)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(1, d, d_out)) / d ** 0.5)
+                         .astype(np.float32))
+    return ([h.cuda()]
+            + [torch.from_numpy(np.ascontiguousarray(x[:, 0]))[None].cuda()
+               for x in slabs]
+            + [w.cuda()]), indptr, indices
+
+
+def phase_kernels_csr(torch, np, graph_agg, csr_plan):
+    """CSR kernel vs plain on the million-node serving shape (random ELL
+    tables through ell_to_slabs), planned layouts of ragged CSRs, an empty
+    graph, n_src = 16384, a hub tile and shuffled slabs; the saved mean
+    too, save=False bitwise equal, zero-degree rows exactly 0."""
+    gen = torch.Generator().manual_seed(SEED + 5)
+    cases = [
+        # label, M, n_src, n_dst, F+1 (ELL) or (p_zero, hub, weights,
+        # shuffle) (planned CSR)
+        ("serve l0 (ELL)", 2, 67600, 1040, 33),
+        ("n_src=16384 (ELL)", 2, 16384, 300, 33),
+        ("ragged, weights below 1", 1, 5000, 1001, (0.3, 0, "low", False)),
+        ("ragged, shuffled slabs", 1, 5000, 1001, (0.3, 0, "rand", True)),
+        ("empty graph", 1, 100, 130, (1.0, 0, "none", False)),
+        ("hub tile, slab > 128*33", 1, 67600, 200,
+         (0.2, 6000, "rand", False)),
+        ("hub tile shuffled", 1, 67600, 200, (0.2, 6000, "rand", True)),
+    ]
+    worst = 0.0
+    for i, (label, m, n_src, n_dst, shape) in enumerate(cases):
+        indptr = None
+        if isinstance(shape, int):
+            h, idx, mask, w = _gcn_inputs(torch, gen, m, n_src, n_dst, shape,
+                                          32, 32, "")
+            idx_s, seg_s, ew_s, _ = graph_agg.ell_to_slabs(idx, mask)
+            args = [h, idx_s, seg_s, ew_s, w]
+        else:
+            args, indptr, _ = _csr_inputs(torch, np, csr_plan, SEED + 10 + i,
+                                          n_dst, n_src, 32, 32, *shape)
+        got, mean = graph_agg.graph_agg_csr_cuda(*args, n_dst, save=True)
+        out_only = graph_agg.graph_agg_csr_cuda(*args, n_dst)
+        torch.cuda.synchronize()
+        want, want_mean = graph_agg.graph_agg_csr_plain(*args, n_dst,
+                                                        save=True)
+        if not (torch.isfinite(got).all() and torch.equal(got, out_only)):
+            raise AssertionError(f"graph_agg_csr_cuda at {label}: "
+                                 "non-finite, or save=True changed the output")
+        err = max(float((got - want).abs().max()),
+                  float((mean - want_mean).abs().max()))
+        worst = max(worst, err)
+        if err > KERNEL_ATOL:
+            raise AssertionError(
+                f"graph_agg_csr_cuda vs plain at {label}: max abs err "
+                f"{err:.3e} > {KERNEL_ATOL:.0e}")
+        if indptr is not None:
+            zero = torch.from_numpy(np.flatnonzero(np.diff(indptr) == 0))
+            if not bool((got[0, zero.cuda()] == 0).all()):
+                raise AssertionError(f"graph_agg_csr_cuda at {label}: a row "
+                                     "with no edges is not exactly 0")
+        kernel = lambda: graph_agg.graph_agg_csr_cuda(*args, n_dst)
+        k_ms = _time_ms(torch, kernel)
+        launch_ms = _time_ms(torch, kernel, preload=False)
+        p_ms = _time_ms(torch, lambda: graph_agg.graph_agg_csr_plain(
+            *args, n_dst))
+        bound_ms, bound_by, nbytes, flops = _csr_bound(torch, *args, n_dst)
+        print(f"kernels: graph_agg_csr {label}: M={m} n_src={n_src} "
+              f"n_dst={n_dst} slab={args[1].shape[1] // max(1, -(-n_dst // 128))}"
+              f" d=d_out=32 max_abs_err={err:.3e} kernel_ms={k_ms:.4f} "
+              f"launch_ms={launch_ms:.4f} plain_ms={p_ms:.4f} "
+              f"bound_us={bound_ms * 1e3:.3f} ({bound_by}; {nbytes} B, "
+              f"{flops} flop) library_ms=null")
+    print(f"kernels: graph_agg_csr worst max_abs_err {worst:.3e} <= "
+          f"{KERNEL_ATOL:.0e}; library_ms=null: {CSR_LIBRARY_NOTE}")
+
+
+def _sparse_mm_ms(torch, graph_agg, h, idx_slab, seg_slab, ew_slab, w, n_dst,
+                  **_):
+    """Device ms of torch.sparse.mm of the row-normalised adjacency built
+    from the slabs (outside the timed region), then @W, every client: the
+    two-call library yardstick of the CSR kernel."""
+    rows = graph_agg.csr_rows(seg_slab, n_dst)
+    _, wsum = graph_agg.csr_segment_sums(h, idx_slab, ew_slab, rows, n_dst)
+    den = torch.clamp(wsum, min=1.0)
+    mats = []
+    for c in range(h.shape[0]):
+        keep = rows[c] < n_dst
+        r = rows[c][keep]
+        vals = ew_slab[c][keep] / den[c][r]
+        mats.append(torch.sparse_coo_tensor(
+            torch.stack([r, idx_slab[c][keep].long()]), vals,
+            (n_dst, h.shape[1]), check_invariants=True).coalesce())
+    return _time_ms(torch, lambda: [torch.sparse.mm(a, h[c]) @ w[c]
+                                    for c, a in enumerate(mats)])
 
 
 def phase_grads(torch, ops):
@@ -481,6 +650,56 @@ def phase_grads(torch, ops):
                   f"backward {b_ms:.4f}")
 
 
+def phase_grads_csr(torch, np, ops, csr_plan):
+    """Card vs CPU gradients of ops.graph_agg_csr in h, w and the edge
+    weights (degree-1 rows of weight 1 sit on the clamp's tie), and of
+    ops.graph_agg at the CSR dispatch size in h and w; backward device
+    time."""
+    args, indptr, indices = _csr_inputs(torch, np, csr_plan, SEED + 20,
+                                        1040, 5000, 32, 32, 0.3, 0, "rand",
+                                        False)
+    rng = np.random.default_rng(SEED + 21)
+    ew = (0.25 + rng.random(len(indices))).astype(np.float32)
+    ew[indptr[np.flatnonzero(np.diff(indptr) == 1)]] = 1.0
+    g = torch.from_numpy(rng.normal(size=(1040, 32)).astype(np.float32))
+    h, w = args[0][0].cpu(), args[4][0].cpu()
+    m_, n_src = 2, 16384
+    gen = torch.Generator().manual_seed(SEED + 22)
+    hh, idx, mask, ww = _gcn_inputs(torch, gen, m_, n_src, 1040, 33, 32, 32,
+                                    "")
+    gg = torch.randn(m_, 1040, 32, generator=gen)
+    cases = {
+        "graph_agg_csr (h, w, edge_weight)": (
+            lambda ts: ops.graph_agg_csr(ts[0], indptr, indices, ts[1],
+                                         edge_weight=ts[2]),
+            [h, w, torch.from_numpy(ew)], g),
+        "graph_agg at n_src=16384, M=2 (h, w)": (
+            lambda ts: ops.graph_agg(ts[0], idx.to(ts[0].device),
+                                     mask.to(ts[0].device), ts[1]),
+            [hh.cpu(), ww.cpu()], gg),
+    }
+    for name, (fn, leaves, cot) in cases.items():
+        grads = {}
+        for dev in ("cuda", "cpu"):
+            ts = [t.detach().to(dev).requires_grad_(True) for t in leaves]
+            out = fn(ts)
+            grads[dev] = [x.cpu() for x in
+                          torch.autograd.grad(out, ts, cot.to(dev))]
+        errs = []
+        for a_, b_ in zip(grads["cuda"], grads["cpu"]):
+            torch.testing.assert_close(a_, b_, **GRAD_TOL)
+            errs.append(float((a_ - b_).abs().max()))
+        ts = [t.detach().cuda().requires_grad_(True) for t in leaves]
+        out = fn(ts)
+        cot = cot.cuda()
+        b_ms = _time_ms(torch, lambda: torch.autograd.grad(
+            out, ts, cot, retain_graph=True))
+        f_ms = _time_ms(torch, lambda: fn(ts))
+        print(f"kernels: {name} backward: card vs CPU max abs grad err "
+              f"{max(errs):.3e} (rtol=atol={GRAD_TOL['atol']:.0e}); device "
+              f"ms: forward with saved mean {f_ms:.4f}, backward {b_ms:.4f}")
+
+
 class _Capture:
     """Records the inputs of every ``ops.<name>`` call (detached clones,
     the first ``limit``) while active, so a kernel can be timed on exactly
@@ -494,8 +713,9 @@ class _Capture:
     def __enter__(self):
         def recording(*args, **kw):
             if self.limit is None or len(self.calls) < self.limit:
-                self.calls.append(([a.detach().clone() for a in args],
-                                   dict(kw)))
+                self.calls.append(([a.detach().clone()
+                                    if hasattr(a, "detach") else a
+                                    for a in args], dict(kw)))
             return self.orig(*args, **kw)
         setattr(self.ops, self.name, recording)
         return self
@@ -616,7 +836,16 @@ def _cold_breakdown(torch, np, sess, q, glasu, name):
     bucket = sess._bucket(len(uniq))
     no_hit = np.zeros(len(uniq), np.float32)
     no_rows = np.zeros((len(uniq), sess.M, sess.h_agg), np.float32)
-    plan_ms, fwd_ms, d2h_ms = [], [], []
+    plan_ms, fwd_ms, d2h_ms, gather_ms = [], [], [], []
+    gather = sess._gather_feats
+
+    def timed_gather(src0):
+        t = time.perf_counter()
+        out = gather(src0)
+        gather_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    sess._gather_feats = timed_gather
     with torch.inference_mode():
         for _ in range(20):
             torch.cuda.synchronize()
@@ -635,9 +864,14 @@ def _cold_breakdown(torch, np, sess, q, glasu, name):
             plan_ms.append((t1 - t0) * 1e3)
             fwd_ms.append((t2 - t1) * 1e3)
             d2h_ms.append((t3 - t2) * 1e3)
+    del sess._gather_feats
     print(f"slice: {name} cold answer stages (host clock, medians of 20): "
           f"plan "
-          f"build + staging {statistics.median(plan_ms):.3f} ms, "
+          f"build + staging {statistics.median(plan_ms):.3f} ms ("
+          + (f"of which the level-0 feature gather "
+             f"{statistics.median(gather_ms):.3f} ms" if gather_ms else
+             "level 0 is the identity set: resident features, no gather")
+          + "), "
           f"serve_forward to sync {statistics.median(fwd_ms):.3f} ms, "
           f"copy-back {statistics.median(d2h_ms):.3f} ms")
 
@@ -872,6 +1106,161 @@ def phase_train(torch, mods):
     return out
 
 
+def phase_powerlaw(torch, np, mods):
+    """Builds powerlaw-1m into a temporary directory, trains
+    powerlaw1m-gcn-glasu for its 50 rounds on the card and serves the
+    trained parameters from the streamed store."""
+    import shutil
+    import tempfile
+    cfg = mods["get_preset"](POWERLAW_PRESET)
+    root = tempfile.mkdtemp(prefix="chip_smoke_powerlaw_")
+    try:
+        t0 = time.perf_counter()
+        data = mods["make_powerlaw_dataset"](cfg.dataset,
+                                             n_clients=cfg.n_clients,
+                                             seed=cfg.seed, root=root)
+        build_s = time.perf_counter() - t0
+        feat_dims = [c.feat_dim for c in data.clients]
+        print(f"powerlaw: {cfg.dataset} built in {build_s:.3f} s: "
+              f"N={data.n_nodes} edges {len(data.full.indices)} (directed), "
+              f"feature file {data.full.features.nbytes_disk} B in a "
+              f"temporary directory, client feature blocks {feat_dims}, "
+              f"classes {data.n_classes}")
+        if (data.n_nodes, data.n_clients, data.n_classes, feat_dims) != \
+                (POWERLAW_NODES, 2, 16, [32, 32]):
+            raise AssertionError(f"{cfg.dataset} is not at its published "
+                                 "size")
+        params = _powerlaw_train(torch, mods, cfg, data)
+        return _powerlaw_serve(torch, np, mods, cfg, data, params)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _powerlaw_train(torch, mods, cfg, data):
+    graph_agg = mods["graph_agg"]
+    rows = []
+
+    class LossLog(mods["Hook"]):
+        """Every round's losses (device rows, read after the run)."""
+
+        def on_round_end(self, trainer, metrics):
+            rows.append(metrics["losses"])
+
+    _zero_counts(graph_agg)                              # ---- counted run
+    trainer = mods["Trainer"](cfg, data=data, hooks=[LossLog()])
+    t0 = time.perf_counter()
+    res = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts(graph_agg)                          # ---- read counts
+    mcfg = trainer.model_cfg
+    losses = torch.stack(rows).cpu()
+    hooks = [type(h).__name__ for h in trainer.hooks]
+    print(f"powerlaw: {cfg.name} M={mcfg.n_clients} L={mcfg.n_layers} "
+          f"hidden={mcfg.hidden} d_in={mcfg.d_in} classes={mcfg.n_classes} "
+          f"Q={mcfg.n_local_steps} {cfg.optimizer} lr={cfg.lr} layer sizes "
+          f"{trainer.sampler.layer_sizes}: {res.rounds_run} rounds in "
+          f"{wall:.3f} s ({res.rounds_run / wall:.2f} rounds/s on the host "
+          f"clock, no exact eval); losses round 1 "
+          f"{[round(float(x), 4) for x in losses[0]]}, round "
+          f"{res.rounds_run} {[round(float(x), 4) for x in losses[-1]]}; "
+          f"comm {res.comm_bytes} B; launches {counts}; hooks {hooks}")
+    if res.rounds_run != cfg.rounds or len(rows) != cfg.rounds:
+        raise AssertionError(f"{cfg.name} ran {res.rounds_run} rounds")
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"{cfg.name}: a non-finite loss")
+    if res.comm_bytes != POWERLAW_COMM_BYTES:
+        raise AssertionError(f"{cfg.name} metered {res.comm_bytes} B, "
+                             f"expected {POWERLAW_COMM_BYTES}")
+    want = cfg.rounds * (1 + mcfg.n_local_steps) * mcfg.n_layers
+    if counts.pop("graph_agg_cuda") != want or any(counts.values()):
+        raise AssertionError(f"{cfg.name}: expected {want} graph_agg_cuda "
+                             f"launches and no other kernel, got {counts}")
+    if hooks != ["CommMeterHook", "LossLog"]:
+        raise AssertionError(f"{cfg.name}: unexpected hooks {hooks}")
+    return res.params
+
+
+def _powerlaw_serve(torch, np, mods, cfg, data, params):
+    graph_agg, ops = mods["graph_agg"], mods["ops"]
+    serve = mods["ServeConfig"](max_batch=16)
+    q = np.asarray(POWERLAW_QUERY)
+
+    def session(device):
+        t = time.perf_counter()
+        sess = mods["InferenceSession"](params, cfg, data, serve=serve,
+                                        device=device)
+        return sess, time.perf_counter() - t
+
+    # warm-up session, outside the counted run: CUDA context, library
+    # handles, and the CSR kernel's main-path inputs for the result line
+    with _Capture(ops, "graph_agg_csr_cuda") as cap:
+        warm_sess, _ = session("cuda")
+        warm_sess.answer(q)
+    captured = cap.calls
+    del warm_sess
+
+    sess, sess_s = session("cuda")
+    sizes = sess._plan_sizes(16)
+    _zero_counts(graph_agg)                              # ---- counted run
+    cold = sess.answer(q)
+    per_cold = _counts(graph_agg)
+    warm = sess.answer(q)
+    one = sess.answer([7])
+    counts = _counts(graph_agg)                          # ---- read counts
+    torch.cuda.synchronize()
+    launches = counts["graph_agg_csr_cuda"]
+    print(f"powerlaw: serving {cfg.name} (session built in {sess_s:.3f} s, "
+          f"neighbor tables only, W={sess.W}); 16-query plan sizes {sizes}, "
+          f"1-query {sess._plan_sizes(1)}; cold answer launches {per_cold}; "
+          f"counted run (cold, warm, 1-query cold) {counts}")
+    if sizes != [67600, 1040, 16] or not sess._streamed:
+        raise AssertionError(f"unexpected serving plan {sizes}")
+    if per_cold != {"graph_agg_cuda": 1, "gcnii_layer_cuda": 0,
+                    "gat_layer_cuda": 0, "graph_agg_csr_cuda": 1}:
+        raise AssertionError(f"a cold 16-query answer launched {per_cold}")
+    if counts["graph_agg_csr_cuda"] != 1 or counts["graph_agg_cuda"] != 3:
+        raise AssertionError("the warm or the 1-query answer launched the "
+                             f"CSR kernel, or the GCN kernel wrongly: {counts}")
+    if cold.wire_bytes != POWERLAW_WIRE_BYTES or not cold.cold:
+        raise AssertionError(f"cold answer billed {cold.wire_bytes} B, "
+                             f"expected {POWERLAW_WIRE_BYTES}")
+    if warm.cold or warm.wire_bytes != 0 or \
+            not np.array_equal(warm.logits, cold.logits):
+        raise AssertionError("the repeated query did not take the warm path")
+    if not one.cold or cold.logits.shape != (16, data.n_classes) or \
+            not np.isfinite(cold.logits).all():
+        raise AssertionError(f"bad logits {cold.logits.shape}")
+
+    cpu, cpu_s = session("cpu")
+    want = cpu.answer(q)
+    np.testing.assert_allclose(cold.logits, want.logits, **SLICE_TOL)
+    np.testing.assert_allclose(cold.per_client, want.per_client, **SLICE_TOL)
+    if (want.fresh_rows, want.wire_bytes) != (cold.fresh_rows,
+                                              cold.wire_bytes):
+        raise AssertionError("CPU and CUDA sessions billed different bytes")
+    print(f"powerlaw: cold wire {cold.wire_bytes} B (fresh rows "
+          f"{cold.fresh_rows}), warm {warm.wire_bytes} B; CUDA vs CPU (plain "
+          f"CSR and GCN versions) cold logits max abs diff "
+          f"{np.abs(cold.logits - want.logits).max():.3e} (rtol=atol="
+          f"{SLICE_TOL['atol']:.0e}); CPU answer "
+          f"{want.latency_s * 1e3:.3f} ms")
+
+    cold_ms, warm_ms = [], []
+    for _ in range(10):
+        sess.cache.clear()
+        cold_ms.append(sess.answer(q).latency_s * 1e3)
+    for _ in range(100):
+        warm_ms.append(sess.answer(q).latency_s * 1e3)
+    print(f"slice: {cfg.name} 16-query answer latency cold median "
+          f"{statistics.median(cold_ms):.3f} ms "
+          f"({1e3 / statistics.mean(cold_ms):.1f} answers/s), warm median "
+          f"{statistics.median(warm_ms):.3f} ms "
+          f"({1e3 / statistics.mean(warm_ms):.1f} answers/s)")
+    _cold_breakdown(torch, np, sess, q, mods["glasu"], cfg.name)
+    return launches, captured
+
+
 def _replay(torch, captured, cuda_fn, plain_fn, bound_fn):
     """Per-launch numbers of a kernel on exactly the inputs the main path
     gave it: max abs error, device ms, host-inclusive ms, plain ms, bound."""
@@ -904,11 +1293,13 @@ def _sums(rows):
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
-def phase_result(torch, graph_agg, trained, served, n_layers):
+def phase_result(torch, graph_agg, trained, served, powerlaw, n_layers):
     """The kernels line: each kernel timed on the inputs the training path
     gave it in one joint inference (the launches of its preset's counted
     200-round run); GCNII and GAT also on one cold answer of the serving
-    path."""
+    path; the CSR kernel on the input one cold 16-query answer of the
+    million-node serving path gave it (the launches of that counted
+    run)."""
     scope = (f"sum over the {n_layers} launches of one joint inference of a "
              "training round of {preset} (M=3, d=64, F+1=4, n_src/n_dst "
              "512/512, 512/512, 512/64, 64/16); ms, plain_ms: device time; "
@@ -950,6 +1341,24 @@ def phase_result(torch, graph_agg, trained, served, n_layers):
                                     "bound_by")},
                 serve_per_launch=serve_rows)
         entries.append(entry)
+    launches, captured = powerlaw
+    rows = _replay(torch, captured, graph_agg.graph_agg_csr_cuda,
+                   graph_agg.graph_agg_csr_plain, _csr_bound)
+    entries.append(dict(
+        name="graph_agg_csr", route="cuda",
+        source="src/repro_torch/kernels/csrc/graph_agg_csr.cu",
+        replaces="src/repro/kernels/graph_agg.py:192", launches=launches,
+        max_abs_err=max(r["max_abs_err"] for r in rows), **_sums(rows),
+        library_ms=None, library_note=CSR_LIBRARY_NOTE,
+        sparse_mm_two_calls_ms=_sparse_mm_ms(torch, graph_agg,
+                                             *captured[0][0]),
+        scope=(f"the {len(rows)} launch(es) of one cold 16-query answer of "
+               f"{POWERLAW_PRESET} on powerlaw-1m (layer 0: M=2, n_src 67600"
+               " -> n_dst 1040, F+1=33, d=d_out=32); ms, plain_ms: device "
+               "time; launch_ms: with the host's enqueue time; launches: "
+               "the counted serving run (cold 16-query, warm, cold 1-query "
+               "answers)"),
+        per_launch=rows))
     print(json.dumps({"kernels": entries}))
 
 
@@ -960,11 +1369,12 @@ def main() -> int:
               "run needs an NVIDIA GPU (CUDA)", file=sys.stderr)
         return 2
     import numpy as np
-    from repro_torch.api import Trainer, get_preset
+    from repro_torch.api import Hook, Trainer, get_preset
     from repro_torch.core import glasu
+    from repro_torch.graph import csr_plan
     from repro_torch.graph.prefetch import sample_rounds, unstack_round
     from repro_torch.graph.sampler import GlasuSampler, batch_to_device
-    from repro_torch.graph.synth import make_vfl_dataset
+    from repro_torch.graph.synth import make_powerlaw_dataset, make_vfl_dataset
     from repro_torch.kernels import build, graph_agg, ops
     from repro_torch.optim.optimizers import make_optimizer
     from repro_torch.serve import InferenceSession, ServeConfig
@@ -975,9 +1385,12 @@ def main() -> int:
     phase_kernels(torch, graph_agg)
     phase_kernels_gcn(torch, graph_agg)
     phase_kernels_gat(torch, graph_agg)
+    phase_kernels_csr(torch, np, graph_agg, csr_plan)
     phase_grads(torch, ops)
+    phase_grads_csr(torch, np, ops, csr_plan)
     mods = dict(glasu=glasu, graph_agg=graph_agg, ops=ops,
                 get_preset=get_preset, make_vfl_dataset=make_vfl_dataset,
+                make_powerlaw_dataset=make_powerlaw_dataset, Hook=Hook,
                 InferenceSession=InferenceSession, ServeConfig=ServeConfig,
                 Trainer=Trainer, GlasuSampler=GlasuSampler,
                 sample_rounds=sample_rounds, unstack_round=unstack_round,
@@ -987,7 +1400,8 @@ def main() -> int:
     served = {kernel: phase_slice(torch, np, mods, name, kernel)
               for name, kernel in SERVE_PRESETS.items()}
     trained = phase_train(torch, mods)
-    phase_result(torch, graph_agg, trained, served,
+    powerlaw = phase_powerlaw(torch, np, mods)
+    phase_result(torch, graph_agg, trained, served, powerlaw,
                  get_preset("cora-gcnii-glasu").n_layers)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -120,7 +120,9 @@ class ExperimentConfig:
         if self.rounds < 0:
             err("rounds must be >= 0")
         if self.eval_every < 0:
-            err("eval_every must be >= 0")
+            err("eval_every must be >= 0 (0 = no exact eval; the only "
+                "option for streamed-store datasets, whose features never "
+                "materialize)")
         if self.eval_every == 0 and self.target_acc is not None:
             err("target_acc early stopping needs periodic exact eval; set "
                 "eval_every > 0")

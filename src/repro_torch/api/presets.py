@@ -3,9 +3,8 @@
 Every §5.2 comparison cell is a preset: {cora, citeseer, pubmed} proxies ×
 {gcnii, gcn, gat} backbones × {glasu, centralized, standalone,
 simulated-centralized, fedbcd} methods, named ``<dataset>-<backbone>-<method>``
-(e.g. ``cora-gcnii-glasu``), equal field for field to ``repro.api.presets``.
-The reference's streamed-store scale profile waits for the million-node
-slice of the port.
+(e.g. ``cora-gcnii-glasu``), equal field for field to ``repro.api.presets``,
+and the streamed-store scale profile ``powerlaw1m-gcn-glasu``.
 """
 from __future__ import annotations
 
@@ -53,4 +52,21 @@ def _register_paper_grid() -> None:
                     n_local_steps=q, rounds=200, lr=0.01, eval_every=25))
 
 
+def _register_scale_profiles() -> None:
+    """ROADMAP-scale streamed-store profiles (graph/synth.py POWERLAW_SPECS).
+
+    The 2^20-node power-law graph streams features through
+    ``MemmapFeatureStore`` column views, and a serving plan's level 0
+    (67600 source rows for a 16-query bucket) routes ``graph_agg`` to the
+    CSR segment-sum kernel. Exact full-graph eval would materialize all N
+    feature rows, so the preset ships with ``eval_every=0`` (loss-only
+    rounds).
+    """
+    register_preset(ExperimentConfig(
+        name="powerlaw1m-gcn-glasu", dataset="powerlaw-1m",
+        method="glasu", backbone="gcn", n_clients=2, n_layers=2, hidden=32,
+        n_local_steps=1, rounds=50, lr=0.01, eval_every=0, table_cap=8))
+
+
 _register_paper_grid()
+_register_scale_profiles()

@@ -13,6 +13,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..graph.feature_store import is_streamed
 from ..graph.graph import VFLDataset
 
 
@@ -52,7 +53,15 @@ def _eval_neighbor_tables(data: VFLDataset, cap: int, seed: int):
 
 def _eval_tables(data: VFLDataset, cap: int, seed: int):
     """``(feats (M, N, d_pad) float32, nbr_idx, nbr_mask)``: features
-    zero-padded to the widest client block, plus the neighbor tables."""
+    zero-padded to the widest client block, plus the neighbor tables.
+    Refuses a streamed feature store, whose N rows must never
+    materialize."""
+    if any(is_streamed(c.features) for c in data.clients):
+        raise RuntimeError(
+            "exact full-graph evaluation materializes all (M, N, d_pad) "
+            "features on device, which defeats a streamed feature store; "
+            f"dataset {data.name!r} must be served/benched through "
+            "row-gather paths (sampler rounds, serve plans) instead")
     nbr_idx, nbr_mask = _eval_neighbor_tables(data, cap, seed)
     d_pad = max(c.feat_dim for c in data.clients)
     feats = []

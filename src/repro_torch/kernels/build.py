@@ -37,6 +37,12 @@ SIGNATURES = {
                     [_P, _P, _P, _P, _P, _P, _P, _P,    # h h0 idx mask w b out z
                      _I, _I, _I, _I, _I,                # m n_src n_dst f1 d
                      _F, _F, _I, _P]),                  # alpha beta device stream
+    "graph_agg_csr": ("graph_agg_csr_launch",
+                      [_P, _P, _P, _P, _P,          # h idx seg ew w
+                       _P, _P, _P, _P,              # out mean sidx sew
+                       _I, _I, _I, _I, _I, _I, _I,  # m n_src n_dst n_tiles
+                                                    # slab d d_out
+                       _I, _P]),                    # device stream
     "graph_agg": ("graph_agg_launch",
                   [_P, _P, _P, _P, _P, _P,              # h idx mask w out mean
                    _I, _I, _I, _I, _I, _I,              # m n_src n_dst f1 d d_out

@@ -6,13 +6,14 @@ reference ``jax.vmap``s the Pallas call) and sits beside a plain PyTorch
 version of the same client-stacked function:
 
     GCN    mean = masked-mean_f h[idx];  mean @ W       (bias, relu outside)
+    CSR    mean_r = sum_{e: seg_e = r} ew_e h[idx_e] / max(sum ew_e, 1);  mean @ W
     GCNII  z = (1-a)·mean + a·H0[self];  relu((1-b)·z + b·(z @ W) + b)
     GAT    wh = h @ W;  per head, att = masked softmax_f of
            leaky_relu(a_src·wh[self] + a_dst·wh[idx]);  elu(att·wh[idx] + b)
 
-``graph_agg_cuda``, ``gcnii_layer_cuda`` and ``gat_layer_cuda`` launch
-``csrc/graph_agg.cu``, ``csrc/gcnii_layer.cu`` and ``csrc/gat_layer.cu``
-and accept only what those kernels read correctly: contiguous
+``graph_agg_cuda``, ``graph_agg_csr_cuda``, ``gcnii_layer_cuda`` and
+``gat_layer_cuda`` launch ``csrc/graph_agg.cu``, ``csrc/graph_agg_csr.cu``,
+``csrc/gcnii_layer.cu`` and ``csrc/gat_layer.cu`` and accept only what those kernels read correctly: contiguous
 float32/int32 CUDA tensors of one device. They raise on anything else and
 on a failed launch; they never fall back to the plain version. With
 ``save=True`` each also returns the intermediates its backward needs (the
@@ -21,13 +22,21 @@ logits for GAT), written by the kernel itself. Each ``.launches`` counts
 its wrapper's launches (one per call, whatever the kernel's internal
 passes), so a run can show that a path went through the kernel.
 
-The CSR kernel of the reference is not ported yet.
+The CSR kernel reads the reference's edge-slab layout: tile i (destination
+rows [128i, 128i+128)) owns slots [i·slab, (i+1)·slab) of the idx / seg /
+ew arrays, seg holds the row within the tile and ``CSR_PAD_ROW`` marks a
+padding slot. ``graph.csr_plan.plan_csr_slabs`` lays a host CSR out that
+way and ``ell_to_slabs`` the padded fanout tables of the sampler and the
+serving plans.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build
+
+DST_BLOCK = 128                  # destination rows of one CSR tile
+CSR_PAD_ROW = DST_BLOCK          # seg of a padding slot: matches no tile row
 
 
 def _masked_mean(h, idx, mask):
@@ -50,6 +59,87 @@ def graph_agg_plain(h, idx, mask, w, *, save: bool = False):
     mean = _masked_mean(h, idx, mask)
     out = torch.bmm(mean, w)
     return (out, mean) if save else out
+
+
+def _slab_tiles(n_dst: int, total: int):
+    """(n_tiles, slab) of a slab layout of ``total`` slots a client."""
+    n_tiles = max(1, -(-n_dst // DST_BLOCK))
+    if total % n_tiles:
+        raise ValueError(f"slab layout of {total} slots a client does not "
+                         f"split into the {n_tiles} tiles of n_dst = {n_dst}")
+    return n_tiles, total // n_tiles
+
+
+def csr_rows(seg_slab, n_dst: int):
+    """(M, total) int64 destination row of every slot, ``n_pad`` (one past
+    the last tile row) for a slot that belongs to no row: the reference's
+    ``csr_slab_ref`` segment ids, with its trash segment."""
+    n_tiles, slab = _slab_tiles(n_dst, seg_slab.shape[1])
+    seg = seg_slab.long()
+    tile = torch.arange(seg.shape[1], device=seg.device) // max(slab, 1)
+    real = (seg >= 0) & (seg < DST_BLOCK)
+    return torch.where(real, seg + DST_BLOCK * tile,
+                       torch.full_like(seg, n_tiles * DST_BLOCK))
+
+
+def csr_segment_sums(h, idx_slab, ew_slab, rows, n_dst: int):
+    """Weighted segment sums over the slab layout: ``(s (M, n_dst, d),
+    wsum (M, n_dst))`` with s[r] = sum ew_e h[idx_e] and wsum[r] = sum ew_e
+    over the slots e of row r, each taken in slab order (``index_add_``)."""
+    m, _, d = h.shape
+    n_seg = max(1, -(-n_dst // DST_BLOCK)) * DST_BLOCK + 1
+    flat = (rows + n_seg * torch.arange(m, device=h.device)[:, None]) \
+        .reshape(-1)
+    ew = ew_slab.to(h.dtype)
+    g = h[torch.arange(m, device=h.device)[:, None], idx_slab.long()] \
+        * ew[..., None]
+    s = torch.zeros(m * n_seg, d, dtype=h.dtype, device=h.device) \
+        .index_add_(0, flat, g.reshape(-1, d))
+    wsum = torch.zeros(m * n_seg, dtype=h.dtype, device=h.device) \
+        .index_add_(0, flat, ew.reshape(-1))
+    return (s.view(m, n_seg, d)[:, :n_dst],
+            wsum.view(m, n_seg)[:, :n_dst])
+
+
+def graph_agg_csr_plain(h, idx_slab, seg_slab, ew_slab, w, n_dst: int, *,
+                        save: bool = False):
+    """Client-stacked CSR segment-mean fused with @W, in plain PyTorch.
+
+    h: (M, n_src, d); idx/seg/ew slabs: (M, n_tiles·slab) in the layout of
+    the module docstring; w: (M, d, d_out) -> (M, n_dst, d_out), or
+    ``(out, mean)`` with ``save``. mean[r] = s[r] / max(wsum[r], 1), so a row
+    with no edges gives 0 and weights summing below 1 are not renormalised.
+    Per client this is exactly ``ref.csr_slab_ref``.
+    """
+    s, wsum = csr_segment_sums(h, idx_slab, ew_slab,
+                               csr_rows(seg_slab, n_dst), n_dst)
+    mean = s / torch.clamp(wsum, min=1.0)[..., None]
+    out = torch.bmm(mean, w)
+    return (out, mean) if save else out
+
+
+def ell_to_slabs(idx, mask):
+    """Padded-fanout (ELL) tables -> the CSR kernel's slab layout.
+
+    Counterpart of ``repro.kernels.graph_agg.ell_to_slabs``, client-stacked:
+    idx/mask (M, n_dst, F) -> ``(idx_slab, seg_slab, ew_slab, n_dst)``,
+    slabs (M, n_tiles·128·F). Every row owns its F slots, so the slab is
+    128·F and the slabs are views of the tables (padded with rows of idx 0,
+    weight 0 to a whole tile) beside a local-row ``arange``. Masked entries
+    become weight-0 edges of their row: the clamped denominator keeps the
+    masked mean.
+    """
+    m, n_dst, fanout = idx.shape
+    pad = (-n_dst) % DST_BLOCK
+    if pad:
+        idx = torch.nn.functional.pad(idx, (0, 0, 0, pad))
+        mask = torch.nn.functional.pad(mask, (0, 0, 0, pad))
+    n_pad = n_dst + pad
+    local = torch.arange(n_pad, dtype=torch.int32,
+                         device=idx.device) % DST_BLOCK
+    seg = local[None, :, None].expand(m, n_pad, fanout).reshape(m, -1)
+    return (idx.to(torch.int32).reshape(m, -1), seg,
+            mask.to(torch.float32).reshape(m, -1), n_dst)
 
 
 def gcnii_layer_plain(h, h0, idx, mask, w, b, *, alpha: float, beta: float,
@@ -176,6 +266,63 @@ def graph_agg_cuda(h, idx, mask, w, *, save: bool = False):
 
 
 graph_agg_cuda.launches = 0
+
+
+def graph_agg_csr_cuda(h, idx_slab, seg_slab, ew_slab, w, n_dst: int, *,
+                       save: bool = False):
+    """Client-stacked CSR segment-mean + @W on the hand-written Hopper
+    kernel.
+
+    Same contract as ``graph_agg_csr_plain``; every tensor must be
+    contiguous on one CUDA device (h, ew, w float32; idx, seg int32). Slots
+    may come in any order within a tile's slab, and a slab may be of any
+    length: the kernel sorts each slab by row into a scratch buffer
+    allocated here (8 B a slot). W and the tile's means, (d·d_out +
+    128·d)·4 B, must fit a block's shared memory beside 9.7 KB of
+    counters (227 KB in all; d = 192 with d_out = 64 fits), else the launch
+    raises. Outputs are allocated here and the kernel runs on the current
+    stream.
+    """
+    fn = "graph_agg_csr_cuda"
+    if not isinstance(h, torch.Tensor) or h.device.type != "cuda":
+        raise ValueError(f"{fn}: h must be a CUDA tensor (the plain version "
+                         "is graph_agg_csr_plain)")
+    if h.dim() != 3 or idx_slab.dim() != 2 or w.dim() != 3:
+        raise ValueError(f"{fn}: h must be (M, n_src, d), the slabs "
+                         "(M, n_tiles·slab) and w (M, d, d_out)")
+    m, n_src, d = h.shape
+    total, d_out, dev = idx_slab.shape[1], w.shape[2], h.device
+    n_tiles, slab = _slab_tiles(n_dst, total)
+    _check(fn, "h", h, torch.float32, (m, n_src, d), dev)
+    _check(fn, "idx_slab", idx_slab, torch.int32, (m, total), dev)
+    _check(fn, "seg_slab", seg_slab, torch.int32, (m, total), dev)
+    _check(fn, "ew_slab", ew_slab, torch.float32, (m, total), dev)
+    _check(fn, "w", w, torch.float32, (m, d, d_out), dev)
+    out = torch.empty((m, n_dst, d_out), dtype=torch.float32, device=dev)
+    mean = torch.empty((m, n_dst, d), dtype=torch.float32, device=dev) \
+        if save else None
+    if out.numel() == 0:
+        return (out, mean) if save else out
+    if n_src == 0 or d == 0:
+        raise ValueError(f"{fn}: empty source set or width")
+    if max(m * total, m * n_src * d, m * n_dst * max(d, d_out)) >= 2 ** 31:
+        raise ValueError(f"{fn}: more than 2^31 elements in one tensor")
+    sidx = torch.empty((m, total), dtype=torch.int32, device=dev)
+    sew = torch.empty((m, total), dtype=torch.float32, device=dev)
+    lib = build.load("graph_agg_csr")
+    _launch(fn, lib.graph_agg_csr_launch(
+        h.data_ptr(), idx_slab.data_ptr(), seg_slab.data_ptr(),
+        ew_slab.data_ptr(), w.data_ptr(), out.data_ptr(),
+        mean.data_ptr() if save else None, sidx.data_ptr(), sew.data_ptr(),
+        m, n_src, n_dst, n_tiles, slab, d, d_out, _device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream),
+        f"M={m}, n_src={n_src}, n_dst={n_dst}, tiles={n_tiles}, "
+        f"slab={slab}, d={d}, d_out={d_out}")
+    graph_agg_csr_cuda.launches += 1
+    return (out, mean) if save else out
+
+
+graph_agg_csr_cuda.launches = 0
 
 
 def gcnii_layer_cuda(h, h0, idx, mask, w, b, *, alpha: float, beta: float,

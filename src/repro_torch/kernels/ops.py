@@ -18,17 +18,28 @@ accumulating ``index_put_``, which adds every duplicate source and scales
 by the mask (masked slots add zero). On CUDA that accumulation sorts the
 indices instead of using atomics, so a run on the card is reproducible.
 ``idx`` and ``mask`` get no gradient.
+
+``graph_agg`` dispatches on the source-set size as the reference does: from
+``CSR_DISPATCH_MIN_SRC`` rows on (a serving plan's level 0 on a
+million-node graph) the fanout tables are laid out as CSR edge slabs
+(``ell_to_slabs``) and the CSR segment-sum kernel runs, on both devices
+(the plain CSR version on the CPU); the backward is the dense op's, from
+the saved mean. ``graph_agg_csr`` aggregates over a host CSR, and its
+explicit VJP also gives the edge weights a gradient.
 """
 from __future__ import annotations
 
 import torch
 
-from .graph_agg import (gat_layer_cuda, gat_layer_plain, gcnii_layer_cuda,
-                        gcnii_layer_plain, graph_agg_cuda, graph_agg_plain)
+from ..graph.csr_plan import csr_slot_map, plan_csr_slabs
+from .graph_agg import (csr_rows, csr_segment_sums, ell_to_slabs,
+                        gat_layer_cuda, gat_layer_plain, gcnii_layer_cuda,
+                        gcnii_layer_plain, graph_agg_csr_cuda,
+                        graph_agg_csr_plain, graph_agg_cuda, graph_agg_plain)
 
-# Source-set size from which the reference dispatches graph_agg to its CSR
-# segment-sum kernel (repro.kernels.ops). That kernel is not ported: on
-# CUDA such calls raise instead of running the dense kernel.
+# Source-set size from which graph_agg runs the CSR segment-sum kernel over
+# edge slabs instead of the dense fanout kernel (repro.kernels.ops, the same
+# threshold: above every training and eval set of the paper's presets).
 CSR_DISPATCH_MIN_SRC = 16384
 
 
@@ -75,11 +86,23 @@ def graph_agg_backward(h, idx, mask, w, mean, g, need_h=True, need_w=True):
     return dh, dw
 
 
+def _graph_agg_forward(h, idx, mask, w, save):
+    """The forward of ``graph_agg`` on h's device: the dense fanout kernel,
+    or from CSR_DISPATCH_MIN_SRC source rows on the CSR kernel over the
+    tables' edge slabs (each with its plain version on the CPU)."""
+    cuda = h.device.type == "cuda"
+    if h.shape[1] >= CSR_DISPATCH_MIN_SRC:
+        fwd = graph_agg_csr_cuda if cuda else graph_agg_csr_plain
+        idx_s, seg_s, ew_s, n_dst = ell_to_slabs(idx, mask)
+        return fwd(h, idx_s, seg_s, ew_s, w, n_dst, save=save)
+    fwd = graph_agg_cuda if cuda else graph_agg_plain
+    return fwd(h, idx, mask, w, save=save)
+
+
 class _GraphAgg(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, idx, mask, w):
-        fwd = graph_agg_cuda if h.device.type == "cuda" else graph_agg_plain
-        out, mean = fwd(h, idx, mask, w, save=True)
+        out, mean = _graph_agg_forward(h, idx, mask, w, True)
         ctx.save_for_backward(h, idx, mask, w, mean)
         return out
 
@@ -95,18 +118,113 @@ class _GraphAgg(torch.autograd.Function):
 def graph_agg(h, idx, mask, w):
     """Masked-mean neighbor gather fused with the weight matmul (GCN core),
     over the client stack. h: (M, n_src, d); idx/mask: (M, n_dst, F+1);
-    w: (M, d, d_out) -> (M, n_dst, d_out). Differentiable in h and w."""
-    kind = _device("graph_agg", h)
-    if kind == "cuda" and h.shape[1] >= CSR_DISPATCH_MIN_SRC:
-        raise NotImplementedError(
-            f"graph_agg: n_src = {h.shape[1]} >= {CSR_DISPATCH_MIN_SRC} takes "
-            "the reference's CSR segment-sum path (CSR kernel not ported "
-            "yet)")
+    w: (M, d, d_out) -> (M, n_dst, d_out). Differentiable in h and w.
+    From CSR_DISPATCH_MIN_SRC source rows on it runs the CSR kernel."""
+    _device("graph_agg", h)
     if torch.is_grad_enabled() and (h.requires_grad or w.requires_grad):
         return _GraphAgg.apply(h, idx, mask, w)
-    if kind == "cuda":
-        return graph_agg_cuda(h, idx, mask, w)
-    return graph_agg_plain(h, idx, mask, w)
+    return _graph_agg_forward(h, idx, mask, w, False)
+
+
+# ---------------------------------------------------------------------- CSR
+def _max_grad(x):
+    """d max(x, 1) / dx as ``jnp.maximum`` differentiates it: 1 above,
+    0 below and 1/2 at the tie (a degree-1 row of weight 1)."""
+    one = torch.ones_like(x)
+    return torch.where(x > 1.0, one,
+                       torch.where(x == 1.0, 0.5 * one, torch.zeros_like(x)))
+
+
+def graph_agg_csr_backward(h, idx_slab, seg_slab, ew_slab, w, mean, n_dst,
+                           g, needs=(True, True, True)):
+    """VJP of the client-stacked CSR segment-mean + @W (``ref.csr_slab_ref``
+    per client) with the saved mean: ``(dh, dew, dw)`` for ``needs`` =
+    which of (h, ew_slab, w) need one (None elsewhere). With s = Σ ew·h[idx]
+    and D = Σ ew over a row's slots, mean = s / max(D, 1):
+    dh[idx_e] += ew_e·dmean[r] / max(D, 1); dew_e = h[idx_e]·dmean[r] /
+    max(D, 1) - (dmean[r]·mean[r]) / max(D, 1)·max′(D), with max′ as
+    ``_max_grad``; slots of no row (padding, rows past n_dst) get 0."""
+    need_h, need_ew, need_w = needs
+    dh = dew = dw = None
+    if need_w:
+        dw = torch.bmm(mean.transpose(1, 2), g)
+    if not (need_h or need_ew):
+        return dh, dew, dw
+    m, n_src, _ = h.shape
+    rows = csr_rows(seg_slab, n_dst)
+    _, wsum = csr_segment_sums(h, idx_slab, ew_slab, rows, n_dst)
+    ds = torch.bmm(g, w.transpose(1, 2)) \
+        / torch.clamp(wsum, min=1.0)[..., None]             # d loss / d s
+    batch = torch.arange(m, device=h.device)[:, None]
+    slot_row = torch.clamp(rows, max=n_dst)
+
+    def per_slot(x):
+        """(M, n_dst, ...) -> (M, total, ...): each slot's row, 0 for a
+        slot of no row."""
+        return torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)[batch,
+                                                                 slot_row]
+
+    ds_slot = per_slot(ds)                                  # (M, total, d)
+    if need_h:
+        dh = _scatter_rows(n_src, idx_slab[:, :, None],
+                           (ew_slab.to(h.dtype)[..., None]
+                            * ds_slot)[:, :, None])
+    if need_ew:
+        dden = -torch.sum(ds * mean, dim=2) * _max_grad(wsum)  # (M, n_dst)
+        dew = torch.sum(h[batch, idx_slab.long()] * ds_slot, dim=2) \
+            + per_slot(dden)
+    return dh, dew, dw
+
+
+class _GraphAggCsr(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, idx_slab, seg_slab, ew_slab, w, n_dst):
+        fwd = graph_agg_csr_cuda if h.device.type == "cuda" \
+            else graph_agg_csr_plain
+        out, mean = fwd(h, idx_slab, seg_slab, ew_slab, w, n_dst, save=True)
+        ctx.save_for_backward(h, idx_slab, seg_slab, ew_slab, w, mean)
+        ctx.n_dst = n_dst
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, idx_slab, seg_slab, ew_slab, w, mean = ctx.saved_tensors
+        n = ctx.needs_input_grad
+        dh, dew, dw = graph_agg_csr_backward(
+            h, idx_slab, seg_slab, ew_slab, w, mean, ctx.n_dst,
+            g.contiguous(), (n[0], n[3], n[4]))
+        return dh, None, None, dew, dw, None
+
+
+def _scatter_edge_weights(indptr, total: int, edge_weight):
+    """(nnz,) edge-weight tensor -> (total,) slab array through the host
+    slot map of ``graph.csr_plan``; differentiable in the weights."""
+    slot = torch.as_tensor(csr_slot_map(indptr, total),
+                           device=edge_weight.device).long()
+    ew = torch.zeros(total, dtype=torch.float32, device=edge_weight.device)
+    return ew.index_put((slot,), edge_weight.to(torch.float32))
+
+
+def graph_agg_csr(h, indptr, indices, w, edge_weight=None):
+    """Sparse aggregation over a host CSR: segment-mean of ``h`` rows per
+    destination, fused with the weight matmul.
+
+    Counterpart of ``repro.kernels.ops.graph_agg_csr`` (one client): h
+    (n_src, d); ``indptr``/``indices`` host numpy, laid out by
+    ``plan_csr_slabs`` on the host; w (d, d_out); edge_weight an optional
+    (nnz,) tensor -> (n_dst, d_out). The CSR kernel runs on CUDA, its plain
+    version on the CPU. Differentiable in h, w and edge_weight (the
+    explicit VJP of ``ref.csr_slab_ref``). Oracle:
+    ``ref.graph_agg_csr_ref``.
+    """
+    _device("graph_agg_csr", h)
+    idx_s, seg_s, ew_s, n_dst = plan_csr_slabs(indptr, indices)
+    stage = lambda a: torch.from_numpy(a[:, 0]).to(h.device)[None]
+    ew = (stage(ew_s) if edge_weight is None else
+          _scatter_edge_weights(indptr, ew_s.shape[0], edge_weight)[None])
+    out = _GraphAggCsr.apply(h[None], stage(idx_s), stage(seg_s), ew,
+                             w[None], n_dst)
+    return out[0]
 
 
 # -------------------------------------------------------------------- GCNII

@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..graph.csr_plan import csr_segments
+
 
 def graph_agg_ref(h, idx, mask, w):
     """GLASU client sub-layer hotspot: masked-mean neighbor gather + matmul.
@@ -19,6 +21,57 @@ def graph_agg_ref(h, idx, mask, w):
     s = torch.sum(g * mask[..., None], dim=1)
     denom = torch.clamp(torch.sum(mask, dim=1, keepdim=True), min=1.0)
     return (s / denom) @ w
+
+
+def graph_agg_csr_ref(h, indptr, indices, w, edge_weight=None):
+    """CSR oracle for the sparse aggregation path: segment-mean + matmul.
+
+    h: (n_src, d); indptr: (n_dst+1,) host numpy; indices: (nnz,) source
+    ids (numpy or tensor); w: (d, d_out); edge_weight: optional (nnz,)
+    tensor (1 when absent: an unweighted mean). A row with no edges gives
+    exactly 0; weights summing below 1 are not renormalised.
+    """
+    n_dst = len(indptr) - 1
+    seg = torch.as_tensor(csr_segments(indptr), device=h.device).long()
+    idx = torch.as_tensor(indices, device=h.device).long()
+    ew = (torch.ones(idx.shape[0], dtype=h.dtype, device=h.device)
+          if edge_weight is None else edge_weight.to(h.dtype))
+    g = h[idx] * ew[:, None]
+    s = torch.zeros(n_dst, h.shape[1], dtype=h.dtype, device=h.device) \
+        .index_add(0, seg, g)
+    denom = torch.zeros(n_dst, dtype=h.dtype, device=h.device) \
+        .index_add(0, seg, ew)
+    return (s / torch.maximum(denom, torch.ones_like(denom))[:, None]) @ w
+
+
+def csr_slab_ref(h, idx_slab, seg_slab, ew_slab, w, n_dst: int):
+    """Segment-sum oracle over the kernel's padded row-tile slab layout.
+
+    idx_slab/seg_slab/ew_slab: (n_tiles·slab,) or (n_tiles·slab, 1) — seg
+    holds the row within its 128-row tile (128 = padding). The global row
+    is rebuilt from the slot position; padding slots land in a trash
+    segment past the last tile row (``n_pad + 1`` segments), as in
+    ``repro.kernels.ref.csr_slab_ref``. ``torch.maximum`` clamps the
+    denominator, so a tie at 1 splits its gradient as ``jnp.maximum`` does.
+    """
+    from .graph_agg import DST_BLOCK
+    idx = idx_slab.reshape(-1).long()
+    seg = seg_slab.reshape(-1).long()
+    ew = ew_slab.reshape(-1).to(h.dtype)
+    total = idx.shape[0]
+    n_tiles = max(1, -(-n_dst // DST_BLOCK))
+    slab = total // n_tiles
+    n_pad = n_tiles * DST_BLOCK
+    tile = torch.arange(total, device=h.device) // max(slab, 1)
+    seg_global = torch.where((seg >= 0) & (seg < DST_BLOCK),
+                             seg + DST_BLOCK * tile,
+                             torch.full_like(seg, n_pad))
+    g = h[idx] * ew[:, None]
+    s = torch.zeros(n_pad + 1, h.shape[1], dtype=h.dtype, device=h.device) \
+        .index_add(0, seg_global, g)[:n_dst]
+    denom = torch.zeros(n_pad + 1, dtype=h.dtype, device=h.device) \
+        .index_add(0, seg_global, ew)[:n_dst]
+    return (s / torch.maximum(denom, torch.ones_like(denom))[:, None]) @ w
 
 
 def gcnii_layer_ref(h, h0, idx, mask, w, b, alpha: float, beta: float):

@@ -23,6 +23,13 @@ Query path, per dispatch:
    aggregation; fresh aggregates are written back to the cache keyed on
    (node, layer) at the current ``params_version``.
 
+On a streamed feature store (the power-law profiles) the session holds
+only the neighbor tables; each plan gathers its level-0 rows from the store
+(only the plan's rows leave disk), a plan that would reach the identity set
+at level 0 and ``precompute()`` refuse. At a million nodes a 16-query
+bucket's level 0 holds 67600 source rows, which ``ops.graph_agg`` sends
+through the CSR segment-sum kernel.
+
 Byte accounting prices exactly the FRESH rows at each aggregation layer,
 as the reference's ``_price`` does. Only the uncompressed, single-device
 (``vmapped``) engine is ported; wire codecs, the sharded engine and the
@@ -38,8 +45,9 @@ import numpy as np
 import torch
 
 from ..core import checkpoint, glasu
-from ..core.train import _eval_tables
+from ..core.train import _eval_neighbor_tables, _eval_tables
 from ..device import resolve_device
+from ..graph.feature_store import is_streamed
 from ..graph.sampler import SampledBatch
 from .cache import HotNodeCache
 from .config import ServeConfig
@@ -98,14 +106,25 @@ class InferenceSession:
         m = self.mcfg
         self.M, self.L, self.N = m.n_clients, m.n_layers, data.n_nodes
         self.h_agg = m.hidden * (self.M if m.agg == "concat" else 1)
-        feats, nbr_idx, nbr_mask = _eval_tables(
-            data, config.eval_table_cap, config.seed)
-        self._np_feats = feats                        # (M, N, d_pad) host
-        self._feats_dev = self._stage(feats)
+        self._d_pad = max(c.feat_dim for c in data.clients)
+        self._streamed = any(is_streamed(c.features) for c in data.clients)
+        if self._streamed:
+            # streamed store: neighbor tables only, on the host; level-0
+            # features are gathered per plan through the store's LRU (never
+            # all N rows), and nothing sweeps the whole graph on the device
+            nbr_idx, nbr_mask = _eval_neighbor_tables(
+                data, config.eval_table_cap, config.seed)
+            self._np_feats = self._feats_dev = None
+            self._nbr_idx_dev = self._nbr_mask_dev = None
+        else:
+            feats, nbr_idx, nbr_mask = _eval_tables(
+                data, config.eval_table_cap, config.seed)
+            self._np_feats = feats                    # (M, N, d_pad) host
+            self._feats_dev = self._stage(feats)
+            self._nbr_idx_dev = self._stage(nbr_idx)
+            self._nbr_mask_dev = self._stage(nbr_mask)
         self._nbr_idx = nbr_idx                       # (M, N, W) host
         self._nbr_mask = nbr_mask
-        self._nbr_idx_dev = self._stage(nbr_idx)
-        self._nbr_mask_dev = self._stage(nbr_mask)
         self.W = self._nbr_idx.shape[-1]
         self._identity = np.arange(self.N, dtype=np.int32)
 
@@ -267,11 +286,14 @@ class InferenceSession:
 
         src0 = sets[0]
         if sizes[0] == N:
+            if self._streamed:
+                raise RuntimeError(
+                    "query plan reached the identity set at level 0, which "
+                    "a streamed feature store cannot materialize; lower the "
+                    "serve buckets / eval_table_cap for this graph scale")
             feats = self._feats_dev          # resident; no per-query copy
         else:
-            valid = (src0 >= 0).astype(np.float32)[None, :, None]
-            feats = self._stage(
-                self._np_feats[:, np.maximum(src0, 0), :] * valid)
+            feats = self._stage(self._gather_feats(src0))
         # labels are a dead input on the serve path
         labels = torch.zeros(bucket, dtype=torch.int32, device=self.device)
         batch = SampledBatch(
@@ -281,6 +303,20 @@ class InferenceSession:
                       for l, (k, r) in inject.items()}
         return QueryPlan(batch=batch, inject=inject_dev, fresh=fresh,
                          fills=fills)
+
+    def _gather_feats(self, src0: np.ndarray) -> np.ndarray:
+        """(M, n, d_pad) level-0 feature block for one plan: resident-array
+        slice on small graphs, per-client store row gather when streamed
+        (only the plan's rows ever leave disk)."""
+        valid = (src0 >= 0).astype(np.float32)[None, :, None]
+        if not self._streamed:
+            return self._np_feats[:, np.maximum(src0, 0), :] * valid
+        safe = np.maximum(src0, 0)
+        f = np.zeros((self.M, len(src0), self._d_pad), np.float32)
+        for m, c in enumerate(self.data.clients):
+            rows = c.features[safe]
+            f[m, :, :rows.shape[1]] = rows
+        return f * valid
 
     # ----------------------------------------------------------- serving
     def _price(self, fresh: Dict[int, int]) -> Tuple[int, int, int]:
@@ -414,6 +450,11 @@ class InferenceSession:
         ``full_forward`` sweep; returns the (M, N, C) full-graph logits.
         The collected aggregate stacks carry exactly the N real nodes, so
         chunk padding can never enter the cache."""
+        if self._streamed:
+            raise RuntimeError(
+                "precompute() sweeps full_forward over all N nodes with "
+                "resident features; a streamed-store session warms its "
+                "cache through served queries instead")
         with self._lock, torch.inference_mode():
             logits, aggs = glasu.full_forward(
                 self.params, self.mcfg, self._feats_dev,

@@ -81,3 +81,47 @@ GAT_CASES = [
 
 def cotangent(seed, shape):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def rand_csr(seed, n_dst, n_src, max_deg=6, p_zero=0.3, hub=0):
+    """Ragged host CSR: ~p_zero of the rows have no neighbors; with ``hub``
+    row 0 has that many, so its tile's slab outgrows 128·33 slots."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(1, max_deg + 1, size=n_dst)
+    deg[rng.random(n_dst) < p_zero] = 0
+    if hub:
+        deg[0] = hub
+    indptr = np.zeros(n_dst + 1, np.int32)
+    indptr[1:] = np.cumsum(deg, dtype=np.int32)
+    indices = rng.integers(0, n_src, size=int(indptr[-1])).astype(np.int32)
+    return indptr, indices
+
+
+def csr_weights(seed, nnz, kind):
+    """None (unweighted), "rand" (0.25-1.25) or "low" (0.05-0.3: most rows'
+    weights sum below 1, which the clamp must not renormalise)."""
+    if kind == "none":
+        return None
+    rng = np.random.default_rng(seed)
+    lo, hi = (0.25, 1.25) if kind == "rand" else (0.05, 0.3)
+    return (lo + (hi - lo) * rng.random(nnz)).astype(np.float32)
+
+
+def shuffle_slabs(seed, n_tiles, *slabs):
+    """The same slab layout with the slots of every tile permuted: edges of
+    a row no longer contiguous or in row order."""
+    rng = np.random.default_rng(seed)
+    slab = slabs[0].shape[0] // n_tiles
+    perm = np.concatenate([t * slab + rng.permutation(slab)
+                           for t in range(n_tiles)]).astype(np.int32)
+    return tuple(s[perm] for s in slabs)
+
+
+CSR_CASES = [
+    # label, n_dst, n_src, max_deg, p_zero, hub, weights
+    ("ragged", 300, 64, 6, 0.3, 0, "none"),          # n_dst % 128 != 0
+    ("weights below 1", 300, 64, 6, 0.3, 0, "low"),
+    ("empty graph", 130, 16, 6, 1.0, 0, "none"),
+    ("n_dst=1", 1, 40, 6, 0.0, 0, "rand"),
+    ("hub tile", 200, 500, 6, 0.2, 6000, "rand"),    # slab 6144 > 128·33
+]

@@ -18,14 +18,16 @@ import torch
 
 from repro_torch.api import ExperimentConfig, get_preset
 from repro_torch.core import glasu
+from repro_torch.graph.csr_plan import plan_csr_slabs
 from repro_torch.graph.prefetch import sample_rounds
 from repro_torch.graph.sampler import GlasuSampler, batch_to_device
 from repro_torch.graph.synth import make_vfl_dataset
 from repro_torch.kernels import graph_agg, ops
 from repro_torch.tree import tree_leaves, tree_map
 
-from _torch_inputs import (GAT_CASES, GCN_CASES, GCNII_CASES, cotangent,
-                           gat_inputs, gcn_inputs, gcnii_inputs)
+from _torch_inputs import (CSR_CASES, GAT_CASES, GCN_CASES, GCNII_CASES,
+                           cotangent, csr_weights, gat_inputs, gcn_inputs,
+                           gcnii_inputs, rand_csr, shuffle_slabs)
 
 CARD_TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -122,15 +124,99 @@ def test_card_gradients_match_cpu(cuda_device):
         torch.testing.assert_close(a, b, **CARD_TOL)
 
 
+def _csr_case(i, label, n_dst, n_src, max_deg, p_zero, hub, weights, order,
+              dev):
+    """One client's planned slab layout (slots shuffled within each tile
+    for order="shuffled") with h (1, n_src, 32) and w (1, 32, 32)."""
+    indptr, indices = rand_csr(i, n_dst, n_src, max_deg, p_zero, hub)
+    ew = csr_weights(200 + i, len(indices), weights)
+    idx_s, seg_s, ew_s, n_dst = plan_csr_slabs(indptr, indices, ew)
+    if order == "shuffled":
+        idx_s, seg_s, ew_s = shuffle_slabs(
+            i, max(1, -(-n_dst // graph_agg.DST_BLOCK)), idx_s, seg_s, ew_s)
+    rng = np.random.default_rng(300 + i)
+    h = rng.normal(size=(1, n_src, 32)).astype(np.float32)
+    w = (rng.normal(size=(1, 32, 32)) / np.sqrt(32)).astype(np.float32)
+    slabs = [torch.from_numpy(np.ascontiguousarray(x[:, 0]))[None].to(dev)
+             for x in (idx_s, seg_s, ew_s)]
+    return (torch.from_numpy(h).to(dev), *slabs, torch.from_numpy(w).to(dev),
+            n_dst, indptr)
+
+
 @pytest.mark.cuda
-def test_graph_agg_csr_size_raises_on_cuda(cuda_device, monkeypatch):
-    monkeypatch.setattr(ops, "CSR_DISPATCH_MIN_SRC", 8)
-    args = [torch.from_numpy(x).to(cuda_device)
-            for x in gcn_inputs(12, 1, 10, 4, 3, 4, 4)]
-    before = graph_agg.graph_agg_cuda.launches
-    with pytest.raises(NotImplementedError, match="CSR kernel not ported"):
-        ops.graph_agg(*args)
-    assert graph_agg.graph_agg_cuda.launches == before
+@pytest.mark.parametrize("i,case", list(enumerate(CSR_CASES)),
+                         ids=[c[0] for c in CSR_CASES])
+@pytest.mark.parametrize("order", ["planned", "shuffled"])
+def test_graph_agg_csr_cuda_kernel_matches_plain(cuda_device, i, case, order):
+    *args, n_dst, indptr = _csr_case(i, *case, order, cuda_device)
+    before = graph_agg.graph_agg_csr_cuda.launches
+    got, mean = graph_agg.graph_agg_csr_cuda(*args, n_dst, save=True)
+    torch.cuda.synchronize()
+    assert graph_agg.graph_agg_csr_cuda.launches == before + 1
+    want, want_mean = graph_agg.graph_agg_csr_plain(*args, n_dst, save=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    torch.testing.assert_close(mean, want_mean, rtol=0, atol=1e-5)
+    zero_rows = torch.from_numpy(np.flatnonzero(np.diff(indptr) == 0))
+    assert (got[0, zero_rows.to(cuda_device)] == 0).all()
+    assert torch.equal(graph_agg.graph_agg_csr_cuda(*args, n_dst), got)
+    with pytest.raises(TypeError, match="int32"):
+        graph_agg.graph_agg_csr_cuda(args[0], args[1].long(), *args[2:],
+                                     n_dst)
+
+
+@pytest.mark.cuda
+def test_graph_agg_dispatches_to_csr_kernel_on_card(cuda_device):
+    """n_src = CSR_DISPATCH_MIN_SRC, M = 2: one CSR launch over the tables'
+    edge slabs, no dense launch, the dense kernel's result; gradients in h
+    and w against the CPU's."""
+    m, n_src = 2, ops.CSR_DISPATCH_MIN_SRC
+    x = gcn_inputs(15, m, n_src, 300, 33, 32, 32, True)
+    g = torch.from_numpy(cotangent(16, (m, 300, 32)))
+    dense = graph_agg.graph_agg_cuda(*(torch.from_numpy(t).to(cuda_device)
+                                       for t in x))
+    counts = (graph_agg.graph_agg_csr_cuda.launches,
+              graph_agg.graph_agg_cuda.launches)
+
+    def grads(dev):
+        th, tw = (torch.from_numpy(x[i]).to(dev).requires_grad_(True)
+                  for i in (0, 3))
+        out = ops.graph_agg(th, torch.from_numpy(x[1]).to(dev),
+                            torch.from_numpy(x[2]).to(dev), tw)
+        return out, torch.autograd.grad(out, (th, tw), g.to(dev))
+
+    out, card = grads(cuda_device)
+    torch.cuda.synchronize()
+    assert graph_agg.graph_agg_csr_cuda.launches == counts[0] + 1
+    assert graph_agg.graph_agg_cuda.launches == counts[1]
+    torch.testing.assert_close(out.detach(), dense, rtol=0, atol=1e-5)
+    for a, b in zip(card, grads("cpu")[1]):
+        torch.testing.assert_close(a.cpu(), b, **CARD_TOL)
+
+
+@pytest.mark.cuda
+def test_graph_agg_csr_card_gradients_match_cpu(cuda_device):
+    """h, w and edge_weight gradients of ops.graph_agg_csr on the card
+    against the CPU's, with unit weights on a degree-1 row (the tie)."""
+    indptr, indices = rand_csr(17, 300, 64, 6, 0.3)
+    rng = np.random.default_rng(18)
+    h = rng.normal(size=(64, 32)).astype(np.float32)
+    w = (rng.normal(size=(32, 32)) / np.sqrt(32)).astype(np.float32)
+    ew = csr_weights(19, len(indices), "rand")
+    ew[indptr[np.flatnonzero(np.diff(indptr) == 1)]] = 1.0
+    g = torch.from_numpy(cotangent(20, (300, 32)))
+
+    def grads(dev):
+        leaves = [torch.from_numpy(t).to(dev).requires_grad_(True)
+                  for t in (h, w, ew)]
+        out = ops.graph_agg_csr(leaves[0], indptr, indices, leaves[1],
+                                edge_weight=leaves[2])
+        return [t.cpu() for t in torch.autograd.grad(out, leaves, g.to(dev))]
+
+    before = graph_agg.graph_agg_csr_cuda.launches
+    card = grads(cuda_device)
+    assert graph_agg.graph_agg_csr_cuda.launches == before + 1
+    for a, b in zip(card, grads("cpu")):
+        torch.testing.assert_close(a, b, **CARD_TOL)
 
 
 KERNELS = {"gcn": "graph_agg_cuda", "gcnii": "gcnii_layer_cuda",

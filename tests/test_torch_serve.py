@@ -81,8 +81,8 @@ def _close(got, want, **tol):
 
 # ------------------------------------------------------------------ config
 def test_presets_match_reference():
-    assert list_presets() == [n for n in ref_list_presets()
-                              if not n.startswith("powerlaw")]
+    assert list_presets() == ref_list_presets()
+    assert "powerlaw1m-gcn-glasu" in list_presets()
     for name in list_presets():
         assert get_preset(name).to_dict() == ref_get_preset(name).to_dict()
 
