@@ -9,8 +9,8 @@ Phases, each printing its own lines:
             matmuls and cuDNN, so every comparison is in full fp32;
 2. build    compiles every kernel of the serving and training paths from
             the sources in this checkout (``src/repro_torch/kernels/csrc``,
-            one nvcc per source, all started together) and prints the build
-            seconds and ptxas' register/shared-memory report;
+            five sources, one nvcc each, all started together) and prints
+            the build seconds and ptxas' register/shared-memory report;
 3. kernels  holds each kernel (GCNII, GCN, GAT, CSR) against its plain
             PyTorch version on the card at the serving, training and eval
             shapes and on ragged and masked shapes (for CSR: the
@@ -21,7 +21,12 @@ Phases, each printing its own lines:
             warm-up) beside the least time the card could take; then each
             op's gradients on the card against the CPU's at rtol = atol =
             1e-4 (cuBLAS sums the backward's products in another order) and
-            the backward's device time;
+            the backward's device time; the flash-attention kernel against
+            its plain version on the reference's cases (four shapes causal
+            and not, windows 32 / 128 / 511, dh 80 and 128, each fp32 at
+            2e-5 and bf16 at 3e-2), the constant-v property and the main-path
+            shape (B 4, S = T = 4096, H 15, Kv 5, dh 64, bf16, held to one
+            bf16 rounding: |err| <= 2^-7 |plain| + 1e-5);
 4. slice    serves ``cora-gcnii-glasu`` and ``cora-gat-glasu`` at full
             width (M = 3, L = 4, hidden 64, d_in 478) from seeded random
             parameters: a 16-query cold answer, the same query warm (bitwise
@@ -46,7 +51,22 @@ Phases, each printing its own lines:
             the CPU session's; a 1-query answer makes no CSR launch; cold
             and warm latency, the plan build and store gather, and a
             profiled cold answer's device busy time and idle share;
-7. result   one JSON line listing every kernel, then the final JSON line.
+7. serve    SmolLM-360M at its published widths (bf16, seed-0 weights),
+            dense and GLASU-split (5 clients, sync every 2nd layer), through
+            ``make_serve_step`` under inference mode: a B 4 x S 4096 prefill
+            of TokenStream prompts with exactly 32 (dense) / 16 (GLASU) flash
+            launches, cold and median time, tokens/s, its last-position
+            logits against the same prefill through the plain version on
+            the card, a profiled split into attention, the rest of the device
+            time and the host; 32 greedy decode steps after the prompt
+            (slots 4096..4127 of 4160-deep caches); decode against prefill in fp32 (B 2, 64-token prompt):
+            argmax agreement >= 0.9, the last position exact;
+8. flash32k one flash launch at the 32k serving shape (B 1, S 32768, H 15,
+            Kv 5, dh 64, bf16) against the plain version (one bf16
+            rounding, as on the main path), its bound and one
+            ``scaled_dot_product_attention`` call (the yardstick, never
+            called by the port);
+9. result   one JSON line listing every kernel, then the final JSON line.
 
 Each path's launch counters are zeroed just before its counted run and read
 just after it: the run fails if a kernel of the path was never launched.
@@ -56,6 +76,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -83,7 +104,7 @@ ADAM_LOSS_TOL = dict(rtol=2e-2, atol=2e-2)
 # reference's own 200-round Adam run climbs to a loss of 62.8 at round 100
 ADAM_CHAOTIC = ("cora-gat-glasu",)
 KERNEL_WRAPPERS = ("graph_agg_cuda", "gcnii_layer_cuda", "gat_layer_cuda",
-                   "graph_agg_csr_cuda")
+                   "graph_agg_csr_cuda", "flash_attention_cuda")
 # preset -> (its kernel's wrapper, least test accuracy). The reference
 # reaches 0.934 / 0.989 on the first two (seed 0) and 0.693-0.809 on the GAT
 # preset over seeds 0-4, its CPU runs; the port draws other initial
@@ -111,6 +132,30 @@ POWERLAW_QUERY = tuple(range(0, 16000, 1000))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 REPS = 30
+BF16_FLOP_PER_S = 989e12          # dense bf16 on the tensor cores (700 W)
+# flash kernel vs its plain version: the reference's flash tolerances
+# (tests/test_kernels.py): fp32 sums in another order; bf16 outputs rounded
+# once from the same fp32 value, so they differ by at most one bf16 step
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# ... kept for those small cases (S <= 512) only. At the main-path and 32k
+# shapes a typical output is ~sqrt(e / S) (0.03 at 4096), below 3e-2, so there
+# bf16 is held to its rounding: kernel and plain version both sum in fp32 and
+# round once, so they differ by at most one bf16 step of |want| (<= 2^-7 of
+# it), plus room for the fp32 sums' order (~1e-6)
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2.0 ** -7, 1e-5
+MAIN_FLASH_SHAPE = (4, 4096, 4096, 15, 5, 64)   # B, S, T, H, Kv, dh
+FLASH_32K_SHAPE = (1, 32768, 15, 5, 64)         # B, S = T, H, Kv, dh
+# prefill: train_4k's sequence length; prefill_32k (B 32, S 32768) cut to
+# B 4, S 4096 so the simple kernel fits the smoke's time
+PREFILL_B, PREFILL_S, PREFILL_REPS = 4, 4096, 5
+DECODE_STEPS, DECODE_DEPTH = 32, 4160   # the steps fill slots 4096..4127
+CONSIST_B, CONSIST_S = 2, 64      # decode vs prefill, fp32
+# bf16 prefill, last-position logits through the kernel vs through the plain
+# version on the card: each layer's attention output rounds to bf16 from
+# fp32 values that differ in the last bits, and a flipped rounding travels
+# through 32 bf16 layers; logits are below 1 in magnitude
+PREFILL_LOGIT_ATOL = 3e-2
+GEMM_WORDS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
 # ~2 ms of GPU spin before each timed call: longer than the host needs to
 # enqueue the start event, the call's launches and the end event
 SLEEP_CYCLES = 4_000_000
@@ -252,7 +297,7 @@ def phase_device(torch):
 def phase_build(build):
     t0 = time.perf_counter()
     results = build.build(["gcnii_layer", "graph_agg", "gat_layer",
-                           "graph_agg_csr"])
+                           "graph_agg_csr", "flash_attention"])
     total = time.perf_counter() - t0
     for r in results:
         state = f"{r.seconds:.2f} s" if r.seconds else "already built"
@@ -260,6 +305,10 @@ def phase_build(build):
         for line in r.log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build:   {line.strip()}")
+    print("build: flash_attention dynamic shared memory a block, "
+          "(196·dh_pad + 4352)·4 B as its launch requests it: "
+          + ", ".join(f"dh_pad {d}: {(196 * d + 4352) * 4} B"
+                      for d in (32, 64, 96, 128)))
     print(f"build: total {total:.2f} s")
 
 
@@ -724,14 +773,22 @@ class _Capture:
         setattr(self.ops, self.name, self.orig)
 
 
+def _wrapper_fns(graph_agg):
+    """Every kernel wrapper by name (the flash wrapper lives in its own
+    module)."""
+    from repro_torch.kernels import flash_attention
+    return {name: getattr(flash_attention if name.startswith("flash")
+                          else graph_agg, name)
+            for name in KERNEL_WRAPPERS}
+
+
 def _zero_counts(graph_agg):
-    for name in KERNEL_WRAPPERS:
-        getattr(graph_agg, name).launches = 0
+    for fn in _wrapper_fns(graph_agg).values():
+        fn.launches = 0
 
 
 def _counts(graph_agg):
-    return {name: getattr(graph_agg, name).launches
-            for name in KERNEL_WRAPPERS}
+    return {name: fn.launches for name, fn in _wrapper_fns(graph_agg).items()}
 
 
 def phase_slice(torch, np, mods, name, kernel_name):
@@ -1217,7 +1274,8 @@ def _powerlaw_serve(torch, np, mods, cfg, data, params):
     if sizes != [67600, 1040, 16] or not sess._streamed:
         raise AssertionError(f"unexpected serving plan {sizes}")
     if per_cold != {"graph_agg_cuda": 1, "gcnii_layer_cuda": 0,
-                    "gat_layer_cuda": 0, "graph_agg_csr_cuda": 1}:
+                    "gat_layer_cuda": 0, "graph_agg_csr_cuda": 1,
+                    "flash_attention_cuda": 0}:
         raise AssertionError(f"a cold 16-query answer launched {per_cold}")
     if counts["graph_agg_csr_cuda"] != 1 or counts["graph_agg_cuda"] != 3:
         raise AssertionError("the warm or the 1-query answer launched the "
@@ -1261,6 +1319,415 @@ def _powerlaw_serve(torch, np, mods, cfg, data, params):
     return launches, captured
 
 
+# ------------------------------------------------------------ transformer
+def smollm_config(**kw):
+    """SmolLM-360M (HuggingFaceTB/SmolLM-360M) at its published widths, as
+    the reference's own history recorded them (``git show
+    45395fd:src/repro/configs/smollm_360m.py``): 32 layers, d_model 960, 15
+    heads over 5 kv heads of 64, d_ff 2560, vocab 49152, bf16. The repo
+    registers only its reduced variant (``get_reduced("smollm_360m")``)."""
+    from repro_torch.configs.base import ArchConfig
+    return ArchConfig(name="smollm-360m", kind="dense", n_layers=32,
+                      d_model=960, n_heads=15, n_kv=5, d_head=64, d_ff=2560,
+                      vocab=49152, dtype="bfloat16", optimizer="adamw",
+                      lr=3e-4, use_flash=True, **kw)
+
+
+def _visible_pairs(s, t, causal, window):
+    """(query, key) pairs the mask lets through, per (batch, head)."""
+    pairs = 0
+    for i in range(s):
+        hi = min(i, t - 1) if causal else t - 1
+        lo = max(i - window + 1, 0) if window is not None else 0
+        pairs += max(hi - lo + 1, 0)
+    return pairs
+
+
+def _flash_bound(b, s, t, h, kv, dh, causal, window, dtype):
+    """(bound_ms, bound_by, bytes, flops) of one attention call: q, k, v
+    read once and the output written once; 4·dh flops a visible (query,
+    key) pair and head (q·k and p·v), over the card's peak for the inputs'
+    type: bf16 on the tensor cores, fp32 outside them."""
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = (2 * b * s * h * dh + 2 * b * t * kv * dh) * item
+    flops = 4 * b * h * dh * _visible_pairs(s, t, causal, window)
+    peak = BF16_FLOP_PER_S if dtype == "bfloat16" else FP32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def _flash_bf16_excess(got, want):
+    """max(|got - want| - FLASH_BF16_RTOL * |want|): at most FLASH_BF16_ATOL
+    when the two differ by no more than one bf16 rounding."""
+    want = want.float()
+    return float(((got.float() - want).abs()
+                  - FLASH_BF16_RTOL * want.abs()).max())
+
+
+def _check_flash_bf16(what, got, want):
+    """The main-path / 32k bf16 check; -> (max abs err, excess)."""
+    err = float((got.float() - want.float()).abs().max())
+    excess = _flash_bf16_excess(got, want)
+    if excess > FLASH_BF16_ATOL or not bool(got.float().isfinite().all()):
+        raise AssertionError(
+            f"{what}: |kernel - plain| exceeds 2^-7 |plain| by {excess:.3e} "
+            f"(> {FLASH_BF16_ATOL:.0e}; max abs err {err:.3e})")
+    return err, excess
+
+
+def _flash_args(torch, gen, b, s, t, h, kv, dh, dtype):
+    dt = getattr(torch, dtype)
+    return [torch.randn(shape, generator=gen, device="cuda").to(dt)
+            for shape in ((b, s, h, dh), (b, t, kv, dh), (b, t, kv, dh))]
+
+
+def _sdpa_library(torch, q, k, v, causal):
+    """One PyTorch call computing the same function (the yardstick; the
+    port never calls it): scaled_dot_product_attention on (B, H, S, dh)
+    views, native GQA."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, enable_gqa=True).transpose(1, 2)
+
+
+def phase_kernels_flash(torch, flash):
+    """Flash kernel vs its plain version on the card: the reference's four
+    test shapes causal and not, windows 32 / 128 / 511, dh 80 and 128, each
+    in fp32 (2e-5) and bf16 (3e-2); the constant-v property; the main-path
+    shape."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    shapes = [((1, 128, 128, 4, 4, 32), c, None) for c in (True, False)] \
+        + [((2, 256, 256, 8, 2, 64), c, None) for c in (True, False)] \
+        + [((1, 200, 200, 4, 1, 64), c, None) for c in (True, False)] \
+        + [((2, 96, 320, 4, 2, 32), c, None) for c in (True, False)] \
+        + [((1, 512, 512, 2, 2, 32), True, w) for w in (32, 128, 511)] \
+        + [((2, 200, 200, 3, 1, 80), True, None),
+           ((1, 130, 130, 4, 2, 128), True, None)]
+    cases = [(shape, causal, window, dtype) for shape, causal, window in shapes
+             for dtype in ("float32", "bfloat16")]
+    cases.append((MAIN_FLASH_SHAPE, True, None, "bfloat16"))
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for shape, causal, window, dtype in cases:
+        q, k, v = _flash_args(torch, gen, *shape, dtype)
+        got = flash.flash_attention_cuda(q, k, v, causal=causal,
+                                         window=window)
+        torch.cuda.synchronize()
+        want = flash.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window)
+        if got.dtype != q.dtype or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"flash_attention_cuda {shape}: dtype "
+                                 f"{got.dtype} or non-finite values")
+        err = float((got.float() - want.float()).abs().max())
+        worst[dtype] = max(worst[dtype], err)
+        main = shape == MAIN_FLASH_SHAPE
+        if main:
+            err, main_excess = _check_flash_bf16(
+                f"flash_attention_cuda vs plain at {shape}", got, want)
+        elif err > FLASH_TOL[dtype]:
+            raise AssertionError(
+                f"flash_attention_cuda vs plain at {shape} causal={causal} "
+                f"window={window} {dtype}: max abs err {err:.3e} > "
+                f"{FLASH_TOL[dtype]:.0e}")
+        reps = 10 if main else REPS
+        k_ms = _time_ms(torch, lambda: flash.flash_attention_cuda(
+            q, k, v, causal=causal, window=window), reps=reps)
+        p_ms = _time_ms(torch, lambda: flash.flash_attention_plain(
+            q, k, v, causal=causal, window=window), reps=reps)
+        bound_ms, bound_by, nbytes, flops = _flash_bound(*shape, causal,
+                                                         window, dtype)
+        lib = ""
+        if main:
+            lib_ms = _time_ms(torch, lambda: _sdpa_library(torch, q, k, v,
+                                                           causal))
+            lib = (f" library_ms={lib_ms:.4f} (scaled_dot_product_attention)"
+                   f"; |err| - 2^-7 |plain| max {main_excess:.3e} <= "
+                   f"{FLASH_BF16_ATOL:.0e}")
+        print(f"kernels: flash_attention B,S,T,H,Kv,dh={shape} "
+              f"causal={causal} window={window} {dtype} max_abs_err="
+              f"{err:.3e} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_us="
+              f"{bound_ms * 1e3:.3f} ({bound_by}; {nbytes} B, {flops} flop)"
+              f"{lib}")
+    q, k, v = _flash_args(torch, gen, 1, 257, 257, 4, 2, 32, "float32")
+    v.fill_(3.25)
+    for window in (None, 40):
+        got = flash.flash_attention_cuda(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        if float((got - 3.25).abs().max()) > 1e-5:
+            raise AssertionError("flash_attention_cuda: a constant v does "
+                                 f"not give a constant output (window "
+                                 f"{window})")
+    print(f"kernels: flash_attention worst max_abs_err fp32 "
+          f"{worst['float32']:.3e} <= {FLASH_TOL['float32']:.0e}, bf16 "
+          f"{worst['bfloat16']:.3e} (<= {FLASH_TOL['bfloat16']:.0e} on the "
+          f"reference's cases; on the main path |err| <= 2^-7 |plain| + "
+          f"{FLASH_BF16_ATOL:.0e}); constant v gives a constant output "
+          "(causal, and window 40)")
+
+
+def phase_flash_32k(torch, flash):
+    """One launch at the 32k serving shape (prefill_32k's sequence, B 1):
+    error against the plain version, device time beside the bound and the
+    library call."""
+    b, s, h, kv, dh = FLASH_32K_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    q, k, v = _flash_args(torch, gen, b, s, s, h, kv, dh, "bfloat16")
+    got = flash.flash_attention_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = flash.flash_attention_plain(q, k, v, causal=True)
+    err, excess = _check_flash_bf16("flash_attention_cuda at 32k", got, want)
+    del want
+    out = dict(
+        max_abs_err=err, bf16_excess=excess,
+        ms=_time_ms(torch, lambda: flash.flash_attention_cuda(q, k, v),
+                    reps=5, warmup=1),
+        plain_ms=_time_ms(torch, lambda: flash.flash_attention_plain(q, k, v),
+                          reps=3, warmup=1),
+        library_ms=_time_ms(torch, lambda: _sdpa_library(torch, q, k, v,
+                                                         True), reps=5))
+    bound_ms, bound_by, nbytes, flops = _flash_bound(b, s, s, h, kv, dh, True,
+                                                     None, "bfloat16")
+    out.update(bound_ms=bound_ms, bound_by=bound_by)
+    print(f"flash32k: B={b} S=T={s} H={h} Kv={kv} dh={dh} bf16 causal: "
+          f"max_abs_err={err:.3e} (|err| - 2^-7 |plain| max {excess:.3e}"
+          f" <= {FLASH_BF16_ATOL:.0e}) kernel_ms={out['ms']:.4f} plain_ms="
+          f"{out['plain_ms']:.4f} library_ms={out['library_ms']:.4f} "
+          f"bound_us={bound_ms * 1e3:.3f} ({bound_by}; {nbytes} B, {flops} "
+          "flop)")
+    return out
+
+
+@contextlib.contextmanager
+def _swapped(obj, name, fn):
+    orig = getattr(obj, name)
+    setattr(obj, name, fn)
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+def _prefill_logits(tfm, params, cfg, toks):
+    """Prefill the prompt, then the last position @ unemb: (B, vocab)."""
+    hidden, _ = tfm.lm_forward(params, cfg, tokens=toks, return_hidden=True)
+    return hidden[:, -1] @ params["unemb"]
+
+
+def _host_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _attention_annotated(mods):
+    """Patches that wrap every plain attention call (``_sdpa`` and
+    ``_sdpa_chunked``; outermost only) in a profiler range "attention". The
+    flash kernel is counted by name instead: the profiler does not tie a
+    kernel launched through ctypes to the range it was launched in."""
+    from torch.profiler import record_function
+    attn = mods["attn"]
+    depth = [0]
+
+    def wrap(fn):
+        def inner(*args, **kw):
+            if depth[0]:
+                return fn(*args, **kw)
+            depth[0] += 1
+            try:
+                with record_function("attention"):
+                    return fn(*args, **kw)
+            finally:
+                depth[0] -= 1
+        return inner
+
+    stack = contextlib.ExitStack()
+    for obj, name in ((attn, "_sdpa"), (attn, "_sdpa_chunked")):
+        stack.enter_context(_swapped(obj, name, wrap(getattr(obj, name))))
+    return stack
+
+
+def _time_split(torch, mods, fn, label):
+    """One call of ``fn`` under torch.profiler: wall, device busy,
+    attention (the flash kernel plus the device time inside the plain
+    "attention" ranges), the GEMM kernels' time (all of them, the plain
+    attention's batched products included), and the host's share (wall -
+    busy)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with _attention_annotated(mods), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall_ms = _host_ms(torch, fn)
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0 and e.key != "attention"]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    gemm_ms = sum(e.self_device_time_total for e in kernels
+                  if any(w in e.key.lower() for w in GEMM_WORDS)) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in kernels
+                   if "flash_attention_kernel" in e.key) / 1e3
+    attn_ms = flash_ms + sum(getattr(e, "device_time_total", 0)
+                             for e in events if e.key == "attention"
+                             and e.device_type == DeviceType.CPU) / 1e3
+    print(f"{label} profiled: wall {wall_ms:.3f} ms (under the profiler), "
+          f"device busy {busy:.3f} ms (idle share {1 - busy / wall_ms:.3f})"
+          f": attention {attn_ms:.3f} ms (flash kernel {flash_ms:.3f}), the "
+          f"rest {busy - attn_ms:.3f} ms; GEMM kernels {gemm_ms:.3f} ms "
+          f"(the plain attention's batched products included); host and "
+          f"idle {wall_ms - busy:.3f} ms; {sum(e.count for e in kernels)} "
+          "device activities")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"{label}   device {e.self_device_time_total:10.1f} us "
+              f"x{e.count:<5d} {e.key[:80]}")
+
+
+def phase_serve_lm(torch, mods, label, cfg, want_launches):
+    """Serves ``cfg`` (SmolLM-360M widths, bf16, seed-0 weights) through
+    ``make_serve_step``: a counted B x S prefill from TokenStream prompts
+    (exactly ``want_launches`` flash launches and no other kernel), its
+    median time and tokens/s, its last-position logits against the same
+    prefill through the plain version on the card, then 32 greedy decode
+    steps after the prompt's PREFILL_S positions, within DECODE_DEPTH-deep
+    caches; then decode against prefill in
+    fp32 (64-token prompt, B 2)."""
+    tfm, flash, ops = mods["tfm"], mods["flash"], mods["ops"]
+    graph_agg = mods["graph_agg"]
+    init, step = mods["make_serve_step"](
+        cfg, mods["InputShape"]("serve", DECODE_DEPTH, PREFILL_B, "decode"),
+        device="cuda")
+    (params, _), init_ms = _host_ms(
+        torch, lambda: init(torch.Generator(device="cuda").manual_seed(SEED)))
+    # the step decodes after the prompt: the caches hold PREFILL_S tokens, so
+    # the DECODE_STEPS tokens go to slots PREFILL_S.. within DECODE_DEPTH
+    # (make_serve_step's own caches are the reference's stand-in, marked as
+    # holding DECODE_DEPTH - 1 tokens: one step would fill them). Their first
+    # PREFILL_S slots are zeros, not the prompt's k and v: lm_forward, as in
+    # the reference, returns no caches. Every slot up to pos is read all the
+    # same; _decode_vs_prefill checks caches filled token by token
+    caches = tfm.init_caches(cfg, PREFILL_B, DECODE_DEPTH,
+                             prefill_len=PREFILL_S, device="cuda")
+    n_params = sum(t.numel() for t in mods["tree_leaves"](params))
+    toks, _ = mods["TokenStream"](cfg.vocab, seed=SEED).batch(PREFILL_B,
+                                                              PREFILL_S)
+    toks = toks.to("cuda")
+    with torch.inference_mode():
+        _zero_counts(graph_agg)                          # ---- counted run
+        logits, cold_ms = _host_ms(
+            torch, lambda: _prefill_logits(tfm, params, cfg, toks))
+        counts = _counts(graph_agg)                      # ---- read counts
+        launches = counts.pop("flash_attention_cuda")
+        if launches != want_launches or any(counts.values()):
+            raise AssertionError(f"{label} prefill: {launches} flash launches"
+                                 f" (want {want_launches}), others {counts}")
+        if logits.shape != (PREFILL_B, cfg.vocab) or \
+                not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"{label}: bad prefill logits "
+                                 f"{tuple(logits.shape)}")
+        times = [_host_ms(torch, lambda: _prefill_logits(tfm, params, cfg,
+                                                         toks))[1]
+                 for _ in range(PREFILL_REPS)]
+        med = statistics.median(times)
+        plain = lambda q, k, v, **kw: flash.flash_attention_plain(q, k, v,
+                                                                  **kw)
+        with _swapped(ops, "flash_attention_cuda", plain):
+            want = _prefill_logits(tfm, params, cfg, toks)
+        err = float((logits.float() - want.float()).abs().max())
+        agree = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
+        if err > PREFILL_LOGIT_ATOL:
+            raise AssertionError(f"{label}: prefill logits through the kernel"
+                                 f" vs the plain version: max abs diff "
+                                 f"{err:.3e} > {PREFILL_LOGIT_ATOL}")
+        print(f"serve: {label} {cfg.n_layers} layers d_model {cfg.d_model} "
+              f"heads {cfg.n_heads}/{cfg.n_kv} dh {cfg.d_head} d_ff "
+              f"{cfg.d_ff} vocab {cfg.vocab} {cfg.dtype}, {n_params} "
+              f"parameters (drawn on the card in {init_ms:.1f} ms); prefill "
+              f"B={PREFILL_B} S={PREFILL_S}: {launches} flash launches, cold "
+              f"{cold_ms:.3f} ms, median of {PREFILL_REPS} {med:.3f} ms "
+              f"({PREFILL_B * PREFILL_S / med * 1e3:.0f} tokens/s); last-"
+              f"position logits vs the plain version on the card: max abs "
+              f"diff {err:.3e} (<= {PREFILL_LOGIT_ATOL}), argmax agreement "
+              f"{agree:.3f}, |logit| max {float(logits.abs().max()):.3f}")
+        out = dict(launches=launches)
+        if label == "dense":
+            with _Capture(ops, "flash_attention_cuda", limit=1) as cap:
+                _prefill_logits(tfm, params, cfg, toks)
+            out["captured"] = cap.calls
+        _time_split(torch, mods,
+                    lambda: _prefill_logits(tfm, params, cfg, toks),
+                    f"serve: {label} prefill")
+
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        step_ms, gen_toks = [], []
+        _zero_counts(graph_agg)
+        for _ in range(DECODE_STEPS):
+            (tok, caches), ms = _host_ms(torch, lambda: step(params, caches,
+                                                             tok))
+            step_ms.append(ms)
+            gen_toks.append(tok)
+        dcounts = _counts(graph_agg)
+        pos = caches["kv" if cfg.glasu else "blocks"].pos
+        gen = torch.cat(gen_toks, dim=1)
+        if any(dcounts.values()) or not bool(
+                (pos == PREFILL_S + DECODE_STEPS).all()) or \
+                gen.shape != (PREFILL_B, DECODE_STEPS) or \
+                not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
+            raise AssertionError(f"{label} decode: launches {dcounts}, "
+                                 f"positions {pos.tolist()}, tokens "
+                                 f"{tuple(gen.shape)}")
+        dmed = statistics.median(step_ms)
+        print(f"serve: {label} decode {DECODE_STEPS} greedy steps, B="
+              f"{PREFILL_B}, positions {PREFILL_S}.."
+              f"{PREFILL_S + DECODE_STEPS - 1} of {DECODE_DEPTH}-deep caches:"
+              " median "
+              f"{dmed:.3f} ms a token step ({PREFILL_B / dmed * 1e3:.0f} "
+              f"tokens/s), first {step_ms[0]:.3f} ms; no kernel launch (decode"
+              f" attention is plain _sdpa, as in the reference)")
+        _time_split(torch, mods, lambda: step(params, caches, tok),
+                    f"serve: {label} decode step")
+    del params, caches
+    torch.cuda.empty_cache()
+    _decode_vs_prefill(torch, mods, label, cfg, want_launches)
+    return out
+
+
+def _decode_vs_prefill(torch, mods, label, cfg, want_launches):
+    """fp32, the same widths: token-by-token lm_decode_step against the
+    prefill argmax (tests/test_decode_consistency.py)."""
+    tfm, flash = mods["tfm"], mods["flash"]
+    cfg32 = cfg.with_(dtype="float32")
+    params = tfm.init_lm(torch.Generator(device="cuda").manual_seed(SEED),
+                         cfg32, "cuda")
+    toks, _ = mods["TokenStream"](cfg.vocab, seed=SEED + 1).batch(CONSIST_B,
+                                                                  CONSIST_S)
+    toks = toks.to("cuda")
+    with torch.inference_mode():
+        before = flash.flash_attention_cuda.launches
+        logits, _ = tfm.lm_forward(params, cfg32, tokens=toks)
+        launches = flash.flash_attention_cuda.launches - before
+        want = logits.argmax(-1)
+        caches = tfm.init_caches(cfg32, CONSIST_B, CONSIST_S, device="cuda")
+        got = []
+        for i in range(CONSIST_S):
+            nxt, caches = tfm.lm_decode_step(params, caches, cfg32,
+                                             toks[:, i:i + 1])
+            got.append(nxt)
+        got = torch.cat(got, dim=1)
+    agree = float((got == want).float().mean())
+    last = bool((got[:, -1] == want[:, -1]).all())
+    print(f"serve: {label} decode vs prefill (fp32, B={CONSIST_B}, "
+          f"{CONSIST_S}-token prompt, {launches} flash launches in the "
+          f"prefill): argmax agreement {agree:.3f} (>= 0.9), last position "
+          f"{'equal' if last else 'DIFFERENT'}")
+    if launches != want_launches or agree < 0.9 or not last:
+        raise AssertionError(f"{label}: decode vs prefill agreement {agree}, "
+                             f"last position equal {last}, {launches} flash "
+                             "launches")
+    del params, caches
+    torch.cuda.empty_cache()
+
+
 def _replay(torch, captured, cuda_fn, plain_fn, bound_fn):
     """Per-launch numbers of a kernel on exactly the inputs the main path
     gave it: max abs error, device ms, host-inclusive ms, plain ms, bound."""
@@ -1293,13 +1760,15 @@ def _sums(rows):
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
-def phase_result(torch, graph_agg, trained, served, powerlaw, n_layers):
+def phase_result(torch, graph_agg, trained, served, powerlaw, n_layers, lm,
+                 flash32k):
     """The kernels line: each kernel timed on the inputs the training path
     gave it in one joint inference (the launches of its preset's counted
     200-round run); GCNII and GAT also on one cold answer of the serving
     path; the CSR kernel on the input one cold 16-query answer of the
-    million-node serving path gave it (the launches of that counted
-    run)."""
+    million-node serving path gave it (the launches of that counted run);
+    the flash kernel on the first layer's input of the counted dense
+    SmolLM-360M prefill, and at the 32k shape."""
     scope = (f"sum over the {n_layers} launches of one joint inference of a "
              "training round of {preset} (M=3, d=64, F+1=4, n_src/n_dst "
              "512/512, 512/512, 512/64, 64/16); ms, plain_ms: device time; "
@@ -1359,7 +1828,48 @@ def phase_result(torch, graph_agg, trained, served, powerlaw, n_layers):
                "the counted serving run (cold 16-query, warm, cold 1-query "
                "answers)"),
         per_launch=rows))
+    entries.append(_flash_entry(torch, lm, flash32k))
     print(json.dumps({"kernels": entries}))
+
+
+def _flash_entry(torch, lm, flash32k):
+    """The flash kernel on the main path's own input: the first layer's
+    q, k, v of the counted dense SmolLM-360M prefill."""
+    from repro_torch.kernels import flash_attention as flash
+    (args, kw), = lm["dense"]["captured"]
+    q, k, v = args
+    got = flash.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err, excess = _check_flash_bf16(
+        "flash main-path launch", got,
+        flash.flash_attention_plain(q, k, v, **kw))
+    b, s, h, dh = q.shape
+    bound_ms, bound_by, _, _ = _flash_bound(b, s, k.shape[1], h, k.shape[2],
+                                            dh, kw["causal"], kw["window"],
+                                            "bfloat16")
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:69",
+        launches=lm["dense"]["launches"],
+        glasu_launches=lm["glasu"]["launches"], max_abs_err=err,
+        tolerance=(f"|err| <= 2^-7 |plain| + {FLASH_BF16_ATOL:.0e} (one bf16 "
+                   f"rounding; reading {excess:.3e} over 2^-7 |plain|)"),
+        ms=_time_ms(torch, lambda: flash.flash_attention_cuda(q, k, v, **kw),
+                    reps=10),
+        plain_ms=_time_ms(torch, lambda: flash.flash_attention_plain(
+            q, k, v, **kw), reps=5),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=_time_ms(torch, lambda: _sdpa_library(torch, q, k, v,
+                                                         kw["causal"])),
+        library_call="torch.nn.functional.scaled_dot_product_attention("
+                     "is_causal=True, enable_gqa=True)",
+        scope=(f"one launch on the main path's input: layer 0 of the counted"
+               f" dense SmolLM-360M prefill (B {b}, S = T = {s}, H {h}, Kv "
+               f"{k.shape[2]}, dh {dh}, bf16, causal); ms, plain_ms, "
+               "library_ms: device time; launches: the counted dense prefill"
+               " (glasu_launches: the GLASU split's)"),
+        at_32k=flash32k)
 
 
 def main() -> int:
@@ -1375,7 +1885,13 @@ def main() -> int:
     from repro_torch.graph.prefetch import sample_rounds, unstack_round
     from repro_torch.graph.sampler import GlasuSampler, batch_to_device
     from repro_torch.graph.synth import make_powerlaw_dataset, make_vfl_dataset
+    from repro_torch.configs.base import GlasuSplit, InputShape
+    from repro_torch.core.steps import make_serve_step
+    from repro_torch.data.pipeline import TokenStream
     from repro_torch.kernels import build, graph_agg, ops
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tfm
     from repro_torch.optim.optimizers import make_optimizer
     from repro_torch.serve import InferenceSession, ServeConfig
     from repro_torch.tree import tree_leaves, tree_map
@@ -1386,6 +1902,7 @@ def main() -> int:
     phase_kernels_gcn(torch, graph_agg)
     phase_kernels_gat(torch, graph_agg)
     phase_kernels_csr(torch, np, graph_agg, csr_plan)
+    phase_kernels_flash(torch, flash)
     phase_grads(torch, ops)
     phase_grads_csr(torch, np, ops, csr_plan)
     mods = dict(glasu=glasu, graph_agg=graph_agg, ops=ops,
@@ -1396,13 +1913,21 @@ def main() -> int:
                 sample_rounds=sample_rounds, unstack_round=unstack_round,
                 batch_to_device=batch_to_device,
                 make_optimizer=make_optimizer, tree_leaves=tree_leaves,
-                tree_map=tree_map)
+                tree_map=tree_map, tfm=tfm, attn=attn, flash=flash,
+                make_serve_step=make_serve_step, InputShape=InputShape,
+                TokenStream=TokenStream)
     served = {kernel: phase_slice(torch, np, mods, name, kernel)
               for name, kernel in SERVE_PRESETS.items()}
     trained = phase_train(torch, mods)
     powerlaw = phase_powerlaw(torch, np, mods)
+    lm = {"dense": phase_serve_lm(torch, mods, "dense", smollm_config(), 32),
+          "glasu": phase_serve_lm(
+              torch, mods, "glasu", smollm_config(
+                  glasu=GlasuSplit(n_clients=5, sync_every=2,
+                                   local_steps=1)), 16)}
+    flash32k = phase_flash_32k(torch, flash)
     phase_result(torch, graph_agg, trained, served, powerlaw,
-                 get_preset("cora-gcnii-glasu").n_layers)
+                 get_preset("cora-gcnii-glasu").n_layers, lm, flash32k)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,1 +1,2 @@
-"""GLASU forward, evaluation tables and checkpoint restore."""
+"""GLASU forward, evaluation tables, checkpoint restore and the
+transformer serve step."""

@@ -25,9 +25,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of each kernel's entry point: (symbol, argtypes); every entry
 # point returns the cudaError_t of its launch as an int
 SIGNATURES = {
+    "flash_attention": ("flash_attention_launch",
+                        [_P, _P, _P, _P,                # q k v out
+                         _I, _I, _I, _I, _I, _I,        # b s t h kv dh
+                         _L, _L, _L, _L,                # q strides
+                         _L, _L, _L, _L,                # k strides
+                         _L, _L, _L, _L,                # v strides
+                         _I, _I, _F, _I,                # causal window scale
+                                                        # bf16
+                         _I, _P]),                      # device stream
     "gat_layer": ("gat_layer_launch",
                   [_P, _P, _P, _P, _P, _P, _P,          # h idx mask w a_src a_dst b
                    _P, _P, _P, _P, _P,                  # out wh scores p x

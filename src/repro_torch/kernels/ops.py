@@ -19,6 +19,11 @@ by the mask (masked slots add zero). On CUDA that accumulation sorts the
 indices instead of using atomics, so a run on the card is reproducible.
 ``idx`` and ``mask`` get no gradient.
 
+``flash_attention`` is forward only: the transformer path serves, and
+nothing in the reference differentiates through its Pallas kernel (it has
+no ``custom_vjp``). On the card an input that needs a gradient raises; on
+the CPU the plain version is differentiable as written.
+
 ``graph_agg`` dispatches on the source-set size as the reference does: from
 ``CSR_DISPATCH_MIN_SRC`` rows on (a serving plan's level 0 on a
 million-node graph) the fanout tables are laid out as CSR edge slabs
@@ -29,9 +34,12 @@ explicit VJP also gives the edge weights a gradient.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..graph.csr_plan import csr_slot_map, plan_csr_slabs
+from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .graph_agg import (csr_rows, csr_segment_sums, ell_to_slabs,
                         gat_layer_cuda, gat_layer_plain, gcnii_layer_cuda,
                         gcnii_layer_plain, graph_agg_csr_cuda,
@@ -71,6 +79,22 @@ def _gather_transpose(n_src, idx, coef, g):
 
 def _inv_denom(mask):
     return mask / torch.clamp(torch.sum(mask, dim=2, keepdim=True), min=1.0)
+
+
+# ------------------------------------------------------------ flash attention
+def flash_attention(q, k, v, causal: bool = True,
+                    window: Optional[int] = None):
+    """Online-softmax attention with native GQA. q: (B, S, H, dh); k/v:
+    (B, T, Kv, dh) -> (B, S, H, dh) in q's dtype. A CUDA tensor launches the
+    hand-written kernel, a CPU tensor takes the plain version; forward only
+    on the card."""
+    if _device("flash_attention", q) == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash attention backward not ported yet: the CUDA kernel is "
+            "forward only (run under torch.no_grad() or inference_mode)")
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)
 
 
 # ---------------------------------------------------------------------- GCN

@@ -1,10 +1,12 @@
-"""Plain PyTorch oracles for the TPU kernels of ``repro.kernels.graph_agg``.
+"""Plain PyTorch oracles for the TPU kernels of ``repro.kernels``.
 
 Single-client signatures, as in ``repro.kernels.ref``. The port's tests hold
 these against the JAX oracles, and the port's kernels against these (through
 the client-stacked plain versions beside each kernel).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -105,3 +107,26 @@ def gat_layer_ref(h, idx, mask, w, a_src, a_dst, b):
     att = torch.softmax(e, dim=1) * mask[..., None]
     out = torch.einsum("nfh,nfhk->nhk", att, wh_nb)
     return F.elu(out.reshape(out.shape[0], n_heads * dh) + b)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True,
+                        window: Optional[int] = None):
+    """q: (B, S, H, dh); k/v: (B, T, Kv, dh) -> (B, S, H, dh).
+
+    Scores in the inputs' dtype, softmax in fp32, the weights cast back to
+    q's dtype before the product with v (as ``repro.kernels.ref``)."""
+    b, s, h, dh = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, s, kv, h // kv, dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k) / dh ** 0.5
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(t, device=q.device)[None, :]
+    m = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    scores = torch.where(m, scores, torch.full_like(scores, -1e30))
+    att = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", att, v)
+    return out.reshape(b, s, h, dh)

@@ -1,1 +1,2 @@
-"""GNN backbone sub-layers (single client, plain PyTorch)."""
+"""GNN backbone sub-layers (single client) and the transformer stack's
+layers, GQA attention and decoder assembly (plain PyTorch)."""

@@ -125,3 +125,40 @@ CSR_CASES = [
     ("n_dst=1", 1, 40, 6, 0.0, 0, "rand"),
     ("hub tile", 200, 500, 6, 0.2, 6000, "rand"),    # slab 6144 > 128·33
 ]
+
+
+def flash_inputs(seed, b, s, t, h, kv, dh, const_v=None):
+    """q (b, s, h, dh), k and v (b, t, kv, dh), standard normal float32; v
+    all ``const_v`` when given."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, s, h, dh)).astype(np.float32)
+    k = rng.normal(size=(b, t, kv, dh)).astype(np.float32)
+    v = rng.normal(size=(b, t, kv, dh)).astype(np.float32)
+    if const_v is not None:
+        v = np.full_like(v, const_v)
+    return q, k, v
+
+
+FLASH_CASES = [
+    # label, b, s, t, h, kv, dh, causal, window, dtype
+    # the reference's four shapes (tests/test_kernels.py), both masks
+    ("mha single block", 1, 128, 128, 4, 4, 32, True, None, "float32"),
+    ("mha single block bidir", 1, 128, 128, 4, 4, 32, False, None, "float32"),
+    ("gqa 4:1 multi-block", 2, 256, 256, 8, 2, 64, True, None, "float32"),
+    ("gqa 4:1 bidir", 2, 256, 256, 8, 2, 64, False, None, "float32"),
+    ("mqa ragged 200", 1, 200, 200, 4, 1, 64, True, None, "float32"),
+    ("mqa ragged 200 bidir", 1, 200, 200, 4, 1, 64, False, None, "float32"),
+    ("t > s causal", 2, 96, 320, 4, 2, 32, True, None, "float32"),
+    ("t > s bidir", 2, 96, 320, 4, 2, 32, False, None, "float32"),
+    # sliding windows (first visited kv tile fully masked for most rows)
+    ("window 32", 1, 512, 512, 2, 2, 32, True, 32, "float32"),
+    ("window 128", 1, 512, 512, 2, 2, 32, True, 128, "float32"),
+    ("window 511", 1, 512, 512, 2, 2, 32, True, 511, "float32"),
+    # dtypes
+    ("bf16", 1, 128, 128, 2, 2, 64, True, None, "bfloat16"),
+    ("bf16 gqa ragged", 2, 200, 200, 6, 2, 64, True, None, "bfloat16"),
+    # head widths: reduced smollm (dh 80, GQA 3:1) and dh 128
+    ("dh 80 gqa 3:1", 2, 200, 200, 3, 1, 80, True, None, "float32"),
+    ("dh 80 bf16", 2, 200, 200, 3, 1, 80, True, None, "bfloat16"),
+    ("dh 128", 1, 130, 130, 4, 2, 128, True, None, "float32"),
+]

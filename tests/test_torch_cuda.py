@@ -10,7 +10,9 @@ The hand-written kernels are held against their plain versions on the same
 inputs at max abs error 1e-5 (fp32, fanout sums in another order), and
 gradients and training rounds on the card against the CPU's at
 ``CARD_TOL``: cuBLAS and the CPU's BLAS sum the backward's products (d·n_dst
-terms for dW) in another order.
+terms for dW) in another order. The flash kernel is held against its plain
+version at the reference's flash tolerances (``FLASH_TOL``: 2e-5 fp32, sums
+in another order; 3e-2 bf16, one bf16 rounding of the output).
 """
 import numpy as np
 import pytest
@@ -22,14 +24,20 @@ from repro_torch.graph.csr_plan import plan_csr_slabs
 from repro_torch.graph.prefetch import sample_rounds
 from repro_torch.graph.sampler import GlasuSampler, batch_to_device
 from repro_torch.graph.synth import make_vfl_dataset
+from repro_torch.configs.base import get_reduced
+from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import graph_agg, ops
+from repro_torch.models import transformer as tfm
 from repro_torch.tree import tree_leaves, tree_map
 
-from _torch_inputs import (CSR_CASES, GAT_CASES, GCN_CASES, GCNII_CASES,
-                           cotangent, csr_weights, gat_inputs, gcn_inputs,
-                           gcnii_inputs, rand_csr, shuffle_slabs)
+from _torch_inputs import (CSR_CASES, FLASH_CASES, GAT_CASES, GCN_CASES,
+                           GCNII_CASES, cotangent, csr_weights, flash_inputs,
+                           gat_inputs, gcn_inputs, gcnii_inputs, rand_csr,
+                           shuffle_slabs)
 
 CARD_TOL = dict(rtol=1e-4, atol=1e-4)
+FLASH_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+             "bfloat16": dict(rtol=3e-2, atol=3e-2)}
 
 
 @pytest.fixture
@@ -318,3 +326,73 @@ def test_cora_gat_rounds_on_card_match_cpu(cuda_device):
     torch.testing.assert_close(lc, lp, **CARD_TOL)
     for a, b in zip(pc, pp):
         torch.testing.assert_close(a, b, **CARD_TOL)
+
+
+def _flash_args(dev, dtype, *shape, seed=20, const_v=None):
+    return [torch.from_numpy(x).to(dev, getattr(torch, dtype))
+            for x in flash_inputs(seed, *shape, const_v=const_v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,b,s,t,h,kv,dh,causal,window,dtype",
+                         FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
+def test_flash_cuda_kernel_matches_plain(cuda_device, label, b, s, t, h, kv,
+                                         dh, causal, window, dtype):
+    q, k, v = _flash_args(cuda_device, dtype, b, s, t, h, kv, dh)
+    before = flash.flash_attention_cuda.launches
+    got = flash.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash.flash_attention_cuda.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_cuda_kernel_strides_constant_v_and_refusals(cuda_device):
+    """q, k and v read through their strides (slices of one packed qkv
+    tensor); a constant v gives a constant output; what the kernel cannot
+    run raises."""
+    b, s, h, kv, dh = 2, 300, 6, 2, 64
+    rng = np.random.default_rng(21)
+    packed = torch.from_numpy(rng.normal(size=(b, s, h + 2 * kv, dh))
+                              .astype(np.float32)).to(cuda_device)
+    q, k, v = packed[:, :, :h], packed[:, :, h:h + kv], packed[:, :, h + kv:]
+    assert not q.is_contiguous()
+    got = flash.flash_attention_cuda(q, k, v, causal=True)
+    want = flash.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), causal=True)
+    torch.testing.assert_close(got, want, **FLASH_TOL["float32"])
+    q, k, v = _flash_args(cuda_device, "float32", 1, 257, 257, 4, 2, 32,
+                          const_v=3.25)
+    got = flash.flash_attention_cuda(q, k, v, causal=True, window=40)
+    torch.testing.assert_close(got, torch.full_like(got, 3.25), rtol=1e-5,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash.flash_attention_cuda(*_flash_args(cuda_device, "float32", 1, 8,
+                                                8, 2, 1, 136))
+    with pytest.raises(TypeError, match="expected torch.float32"):
+        flash.flash_attention_cuda(q, k.bfloat16(), v)
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="backward not ported"):
+        ops.flash_attention(q, k, v)
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v).shape == q.shape
+
+
+@pytest.mark.cuda
+def test_smollm_prefill_on_card_matches_cpu(cuda_device):
+    """Reduced SmolLM (dh 80, GQA 3:1) prefill through the flash kernel on
+    the card against the plain version on the CPU, fp32, one launch per
+    layer."""
+    cfg = get_reduced("smollm_360m").with_(use_flash=True)
+    params = tfm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(22).integers(
+        0, cfg.vocab, size=(2, 200)).astype(np.int32))
+    before = flash.flash_attention_cuda.launches
+    with torch.inference_mode():
+        got, _ = tfm.lm_forward(tree_map(lambda t: t.to(cuda_device), params),
+                                cfg, tokens=toks.to(cuda_device))
+        want, _ = tfm.lm_forward(params, cfg, tokens=toks)
+    assert flash.flash_attention_cuda.launches == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, **CARD_TOL)
