@@ -23,10 +23,13 @@ Phases, each printing its own lines:
             1e-4 (cuBLAS sums the backward's products in another order) and
             the backward's device time; the flash-attention kernel against
             its plain version on the reference's cases (four shapes causal
-            and not, windows 32 / 128 / 511, dh 80 and 128, each fp32 at
-            2e-5 and bf16 at 3e-2), the constant-v property and the main-path
-            shape (B 4, S = T = 4096, H 15, Kv 5, dh 64, bf16, held to one
-            bf16 rounding: |err| <= 2^-7 |plain| + 1e-5);
+            and not, windows 32 / 128 / 511, dh 80 and 128) and on dh 40
+            and 96, S and T that are multiples of no tile, and slices of a
+            packed qkv tensor, each fp32 (the CUDA-core kernel) at 2e-5 and
+            bf16 (the tensor-core kernel) at one bf16 rounding, |err| <=
+            2^-7 |plain| + 1e-5; the constant-v property in both dtypes; the
+            main-path shape (B 4, S = T = 4096, H 15, Kv 5, dh 64, bf16) at
+            the same bound;
 4. slice    serves ``cora-gcnii-glasu`` and ``cora-gat-glasu`` at full
             width (M = 3, L = 4, hidden 64, d_in 478) from seeded random
             parameters: a 16-query cold answer, the same query warm (bitwise
@@ -78,6 +81,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -133,20 +137,19 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 REPS = 30
 BF16_FLOP_PER_S = 989e12          # dense bf16 on the tensor cores (700 W)
-# flash kernel vs its plain version: the reference's flash tolerances
-# (tests/test_kernels.py): fp32 sums in another order; bf16 outputs rounded
-# once from the same fp32 value, so they differ by at most one bf16 step
-FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
-# ... kept for those small cases (S <= 512) only. At the main-path and 32k
-# shapes a typical output is ~sqrt(e / S) (0.03 at 4096), below 3e-2, so there
-# bf16 is held to its rounding: kernel and plain version both sum in fp32 and
-# round once, so they differ by at most one bf16 step of |want| (<= 2^-7 of
-# it), plus room for the fp32 sums' order (~1e-6)
+# flash kernel vs its plain version. fp32: the reference's flash tolerance
+# (tests/test_kernels.py), sums in another order. bf16, every case: kernel
+# and plain version both sum in fp32 and round once, so they differ by at
+# most one bf16 step of |want| (<= 2^-7 of it), plus room for the fp32 sums'
+# order (~1e-6); the reference's bf16 3e-2 is about a typical output's size
+# at S = 4096 (~sqrt(e / S) = 0.03) and is used for no case
+FLASH_F32_TOL = 2e-5
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2.0 ** -7, 1e-5
 MAIN_FLASH_SHAPE = (4, 4096, 4096, 15, 5, 64)   # B, S, T, H, Kv, dh
 FLASH_32K_SHAPE = (1, 32768, 15, 5, 64)         # B, S = T, H, Kv, dh
 # prefill: train_4k's sequence length; prefill_32k (B 32, S 32768) cut to
-# B 4, S 4096 so the simple kernel fits the smoke's time
+# B 4, S 4096 (cut when the first, CUDA-core flash kernel had to fit the
+# smoke's time; kept so runs compare)
 PREFILL_B, PREFILL_S, PREFILL_REPS = 4, 4096, 5
 DECODE_STEPS, DECODE_DEPTH = 32, 4160   # the steps fill slots 4096..4127
 CONSIST_B, CONSIST_S = 2, 64      # decode vs prefill, fp32
@@ -302,14 +305,45 @@ def phase_build(build):
     for r in results:
         state = f"{r.seconds:.2f} s" if r.seconds else "already built"
         print(f"build: {r.name} {state} -> {r.path.relative_to(ROOT)}")
-        for line in r.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build:   {line.strip()}")
-    print("build: flash_attention dynamic shared memory a block, "
-          "(196·dh_pad + 4352)·4 B as its launch requests it: "
+        for kernel, report in _ptxas_report(r.log):
+            print(f"build:   {kernel}: {report}")
+    print("build: flash_attention dynamic shared memory a block, as its "
+          "launches request it: bf16 tensor-core kernel 5·64·(dh_pad + 8)·2"
+          " B: " + ", ".join(f"dh_pad {d}: {5 * 64 * (d + 8) * 2} B"
+                             for d in range(16, 129, 16))
+          + "; fp32 CUDA-core kernel (196·dh_pad + 4352)·4 B: "
           + ", ".join(f"dh_pad {d}: {(196 * d + 4352) * 4} B"
                       for d in (32, 64, 96, 128)))
     print(f"build: total {total:.2f} s")
+
+
+def _kernel_name(mangled):
+    """The kernel's name and template integers from its Itanium-mangled
+    name (``_ZN<len><id>...<len><id>ILi64EE...`` -> ``id<64>``)."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    args = re.findall(r"Li(\d+)E", mangled[i:].split("Ev")[0]) \
+        if mangled[i:i + 1] == "I" else []
+    return name + (f"<{', '.join(args)}>" if args else "")
+
+
+def _ptxas_report(log):
+    """[(kernel, "registers ...; spills ...")] for every instantiation in
+    nvcc's -Xptxas -v log."""
+    rows = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            rows.append((_kernel_name(m.group(1)), []))
+        elif rows and ("registers" in line or "spill" in line):
+            rows[-1][1].append(line.split("ptxas info    :")[-1].strip())
+    return [(name, "; ".join(parts)) for name, parts in rows]
 
 
 def _gcnii_inputs(torch, gen, m, n_src, n_dst, f1, d, case):
@@ -1367,7 +1401,8 @@ def _flash_bf16_excess(got, want):
 
 
 def _check_flash_bf16(what, got, want):
-    """The main-path / 32k bf16 check; -> (max abs err, excess)."""
+    """Every bf16 flash check: one bf16 rounding; -> (max abs err,
+    excess)."""
     err = float((got.float() - want.float()).abs().max())
     excess = _flash_bf16_excess(got, want)
     if excess > FLASH_BF16_ATOL or not bool(got.float().isfinite().all()):
@@ -1383,6 +1418,14 @@ def _flash_args(torch, gen, b, s, t, h, kv, dh, dtype):
             for shape in ((b, s, h, dh), (b, t, kv, dh), (b, t, kv, dh))]
 
 
+def _flash_packed_args(torch, gen, b, s, t, h, kv, dh, dtype):
+    """q, k, v as slices of one packed (B, S, H + 2 Kv, dh) tensor (S = T):
+    strided views, as a fused qkv projection gives them."""
+    packed = torch.randn((b, s, h + 2 * kv, dh), generator=gen,
+                         device="cuda").to(getattr(torch, dtype))
+    return [packed[:, :, :h], packed[:, :, h:h + kv], packed[:, :, h + kv:]]
+
+
 def _sdpa_library(torch, q, k, v, causal):
     """One PyTorch call computing the same function (the yardstick; the
     port never calls it): scaled_dot_product_attention on (B, H, S, dh)
@@ -1392,11 +1435,18 @@ def _sdpa_library(torch, q, k, v, causal):
         is_causal=causal, enable_gqa=True).transpose(1, 2)
 
 
+# the reference's shape at which the fp32 (CUDA-core) kernel's time goes to
+# the kernels line: tests/test_kernels.py's "gqa 4:1 multi-block"
+FLASH_F32_TIMED = ((2, 256, 256, 8, 2, 64), True, None)
+
+
 def phase_kernels_flash(torch, flash):
     """Flash kernel vs its plain version on the card: the reference's four
-    test shapes causal and not, windows 32 / 128 / 511, dh 80 and 128, each
-    in fp32 (2e-5) and bf16 (3e-2); the constant-v property; the main-path
-    shape."""
+    test shapes causal and not, windows 32 / 128 / 511, dh 80 and 128, and
+    dh 40 / 96, S and T that are multiples of no tile, packed qkv slices,
+    each in fp32 (2e-5) and bf16 (one bf16 rounding); the constant-v
+    property in both dtypes; the main-path shape. -> the fp32 kernel's
+    numbers at FLASH_F32_TIMED and the worst bf16 excess."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
     shapes = [((1, 128, 128, 4, 4, 32), c, None) for c in (True, False)] \
         + [((2, 256, 256, 8, 2, 64), c, None) for c in (True, False)] \
@@ -1404,32 +1454,44 @@ def phase_kernels_flash(torch, flash):
         + [((2, 96, 320, 4, 2, 32), c, None) for c in (True, False)] \
         + [((1, 512, 512, 2, 2, 32), True, w) for w in (32, 128, 511)] \
         + [((2, 200, 200, 3, 1, 80), True, None),
-           ((1, 130, 130, 4, 2, 128), True, None)]
-    cases = [(shape, causal, window, dtype) for shape, causal, window in shapes
+           ((1, 130, 130, 4, 2, 128), True, None),
+           ((1, 150, 150, 4, 2, 40), True, None),
+           ((1, 140, 140, 2, 1, 96), False, None),
+           ((1, 201, 333, 4, 2, 64), True, None),
+           ((1, 201, 333, 4, 2, 64), False, None)]
+    cases = [(shape, causal, window, dtype, False)
+             for shape, causal, window in shapes
              for dtype in ("float32", "bfloat16")]
-    cases.append((MAIN_FLASH_SHAPE, True, None, "bfloat16"))
+    cases += [((2, 300, 300, 6, 2, 64), True, None, dtype, True)
+              for dtype in ("float32", "bfloat16")]
+    cases.append((MAIN_FLASH_SHAPE, True, None, "bfloat16", False))
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    for shape, causal, window, dtype in cases:
-        q, k, v = _flash_args(torch, gen, *shape, dtype)
+    worst_excess = float("-inf")
+    f32 = None
+    for shape, causal, window, dtype, packed in cases:
+        args = _flash_packed_args if packed else _flash_args
+        q, k, v = args(torch, gen, *shape, dtype)
         got = flash.flash_attention_cuda(q, k, v, causal=causal,
                                          window=window)
         torch.cuda.synchronize()
         want = flash.flash_attention_plain(q, k, v, causal=causal,
                                            window=window)
+        what = (f"flash_attention_cuda vs plain at {shape} causal={causal} "
+                f"window={window} {dtype}{' packed' if packed else ''}")
         if got.dtype != q.dtype or not torch.isfinite(got.float()).all():
-            raise AssertionError(f"flash_attention_cuda {shape}: dtype "
-                                 f"{got.dtype} or non-finite values")
+            raise AssertionError(f"{what}: dtype {got.dtype} or non-finite "
+                                 "values")
         err = float((got.float() - want.float()).abs().max())
         worst[dtype] = max(worst[dtype], err)
+        tol = ""
+        if dtype == "bfloat16":
+            err, excess = _check_flash_bf16(what, got, want)
+            worst_excess = max(worst_excess, excess)
+            tol = f" (|err| - 2^-7 |plain| max {excess:.3e})"
+        elif err > FLASH_F32_TOL:
+            raise AssertionError(f"{what}: max abs err {err:.3e} > "
+                                 f"{FLASH_F32_TOL:.0e}")
         main = shape == MAIN_FLASH_SHAPE
-        if main:
-            err, main_excess = _check_flash_bf16(
-                f"flash_attention_cuda vs plain at {shape}", got, want)
-        elif err > FLASH_TOL[dtype]:
-            raise AssertionError(
-                f"flash_attention_cuda vs plain at {shape} causal={causal} "
-                f"window={window} {dtype}: max abs err {err:.3e} > "
-                f"{FLASH_TOL[dtype]:.0e}")
         reps = 10 if main else REPS
         k_ms = _time_ms(torch, lambda: flash.flash_attention_cuda(
             q, k, v, causal=causal, window=window), reps=reps)
@@ -1442,28 +1504,36 @@ def phase_kernels_flash(torch, flash):
             lib_ms = _time_ms(torch, lambda: _sdpa_library(torch, q, k, v,
                                                            causal))
             lib = (f" library_ms={lib_ms:.4f} (scaled_dot_product_attention)"
-                   f"; |err| - 2^-7 |plain| max {main_excess:.3e} <= "
-                   f"{FLASH_BF16_ATOL:.0e}")
+                   f" {flops / k_ms / 1e9:.1f} TFLOP/s")
+        if (shape, causal, window) == FLASH_F32_TIMED and dtype == "float32":
+            f32 = dict(shape=list(shape), causal=causal, window=window,
+                       max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       tflops=flops / k_ms / 1e9)
         print(f"kernels: flash_attention B,S,T,H,Kv,dh={shape} "
-              f"causal={causal} window={window} {dtype} max_abs_err="
-              f"{err:.3e} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_us="
-              f"{bound_ms * 1e3:.3f} ({bound_by}; {nbytes} B, {flops} flop)"
-              f"{lib}")
-    q, k, v = _flash_args(torch, gen, 1, 257, 257, 4, 2, 32, "float32")
-    v.fill_(3.25)
-    for window in (None, 40):
-        got = flash.flash_attention_cuda(q, k, v, causal=True, window=window)
-        torch.cuda.synchronize()
-        if float((got - 3.25).abs().max()) > 1e-5:
-            raise AssertionError("flash_attention_cuda: a constant v does "
-                                 f"not give a constant output (window "
-                                 f"{window})")
+              f"causal={causal} window={window} {dtype}"
+              f"{' packed qkv slices' if packed else ''} max_abs_err="
+              f"{err:.3e}{tol} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"bound_us={bound_ms * 1e3:.3f} ({bound_by}; {nbytes} B, "
+              f"{flops} flop){lib}")
+    for dtype in ("float32", "bfloat16"):
+        q, k, v = _flash_args(torch, gen, 1, 257, 257, 4, 2, 32, dtype)
+        v.fill_(3.25)
+        for window in (None, 40):
+            got = flash.flash_attention_cuda(q, k, v, causal=True,
+                                             window=window)
+            torch.cuda.synchronize()
+            if float((got.float() - 3.25).abs().max()) > 1e-5:
+                raise AssertionError("flash_attention_cuda: a constant v "
+                                     "does not give a constant output "
+                                     f"({dtype}, window {window})")
     print(f"kernels: flash_attention worst max_abs_err fp32 "
-          f"{worst['float32']:.3e} <= {FLASH_TOL['float32']:.0e}, bf16 "
-          f"{worst['bfloat16']:.3e} (<= {FLASH_TOL['bfloat16']:.0e} on the "
-          f"reference's cases; on the main path |err| <= 2^-7 |plain| + "
-          f"{FLASH_BF16_ATOL:.0e}); constant v gives a constant output "
-          "(causal, and window 40)")
+          f"{worst['float32']:.3e} <= {FLASH_F32_TOL:.0e}, bf16 "
+          f"{worst['bfloat16']:.3e} with |err| - 2^-7 |plain| at most "
+          f"{worst_excess:.3e} <= {FLASH_BF16_ATOL:.0e} on every bf16 case; "
+          "constant v gives a constant output (fp32 and bf16, causal and "
+          "window 40)")
+    return dict(fp32=f32, bf16_worst_excess=worst_excess)
 
 
 def phase_flash_32k(torch, flash):
@@ -1488,13 +1558,16 @@ def phase_flash_32k(torch, flash):
                                                          True), reps=5))
     bound_ms, bound_by, nbytes, flops = _flash_bound(b, s, s, h, kv, dh, True,
                                                      None, "bfloat16")
-    out.update(bound_ms=bound_ms, bound_by=bound_by)
+    out.update(bound_ms=bound_ms, bound_by=bound_by,
+               tflops=flops / out["ms"] / 1e9,
+               bound_share=bound_ms / out["ms"])
     print(f"flash32k: B={b} S=T={s} H={h} Kv={kv} dh={dh} bf16 causal: "
           f"max_abs_err={err:.3e} (|err| - 2^-7 |plain| max {excess:.3e}"
           f" <= {FLASH_BF16_ATOL:.0e}) kernel_ms={out['ms']:.4f} plain_ms="
           f"{out['plain_ms']:.4f} library_ms={out['library_ms']:.4f} "
           f"bound_us={bound_ms * 1e3:.3f} ({bound_by}; {nbytes} B, {flops} "
-          "flop)")
+          f"flop); {out['tflops']:.1f} TFLOP/s, {out['bound_share']:.3f} of "
+          "the bound")
     return out
 
 
@@ -1761,7 +1834,7 @@ def _sums(rows):
 
 
 def phase_result(torch, graph_agg, trained, served, powerlaw, n_layers, lm,
-                 flash32k):
+                 flash32k, flash_cases):
     """The kernels line: each kernel timed on the inputs the training path
     gave it in one joint inference (the launches of its preset's counted
     200-round run); GCNII and GAT also on one cold answer of the serving
@@ -1828,13 +1901,14 @@ def phase_result(torch, graph_agg, trained, served, powerlaw, n_layers, lm,
                "the counted serving run (cold 16-query, warm, cold 1-query "
                "answers)"),
         per_launch=rows))
-    entries.append(_flash_entry(torch, lm, flash32k))
+    entries.append(_flash_entry(torch, lm, flash32k, flash_cases))
     print(json.dumps({"kernels": entries}))
 
 
-def _flash_entry(torch, lm, flash32k):
+def _flash_entry(torch, lm, flash32k, flash_cases):
     """The flash kernel on the main path's own input: the first layer's
-    q, k, v of the counted dense SmolLM-360M prefill."""
+    q, k, v of the counted dense SmolLM-360M prefill; beside it the 32k
+    launch and the fp32 kernel at one of the reference's shapes."""
     from repro_torch.kernels import flash_attention as flash
     (args, kw), = lm["dense"]["captured"]
     q, k, v = args
@@ -1844,19 +1918,28 @@ def _flash_entry(torch, lm, flash32k):
         "flash main-path launch", got,
         flash.flash_attention_plain(q, k, v, **kw))
     b, s, h, dh = q.shape
-    bound_ms, bound_by, _, _ = _flash_bound(b, s, k.shape[1], h, k.shape[2],
-                                            dh, kw["causal"], kw["window"],
-                                            "bfloat16")
+    bound_ms, bound_by, _, flops = _flash_bound(
+        b, s, k.shape[1], h, k.shape[2], dh, kw["causal"], kw["window"],
+        "bfloat16")
+    ms = _time_ms(torch, lambda: flash.flash_attention_cuda(q, k, v, **kw),
+                  reps=10)
     return dict(
         name="flash_attention", route="cuda",
+        route_detail=("bf16: flash_attention_kernel_mma, tensor cores "
+                      "(mma.sync m16n8k16 bf16 -> fp32 for q.k^T and for "
+                      "p.v with P split into bf16 hi + lo, ldmatrix, K/V "
+                      "tiles by cp.async into a two-stage ring); fp32: "
+                      "flash_attention_kernel_f32, CUDA cores (fp32 FMA); "
+                      "an explicit dispatch on the dtype, no fallback"),
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:69",
         launches=lm["dense"]["launches"],
         glasu_launches=lm["glasu"]["launches"], max_abs_err=err,
         tolerance=(f"|err| <= 2^-7 |plain| + {FLASH_BF16_ATOL:.0e} (one bf16 "
                    f"rounding; reading {excess:.3e} over 2^-7 |plain|)"),
-        ms=_time_ms(torch, lambda: flash.flash_attention_cuda(q, k, v, **kw),
-                    reps=10),
+        bf16_excess=excess,
+        bf16_worst_excess_all_cases=flash_cases["bf16_worst_excess"],
+        ms=ms, tflops=flops / ms / 1e9, bound_share=bound_ms / ms,
         plain_ms=_time_ms(torch, lambda: flash.flash_attention_plain(
             q, k, v, **kw), reps=5),
         bound_ms=bound_ms, bound_by=bound_by,
@@ -1867,9 +1950,10 @@ def _flash_entry(torch, lm, flash32k):
         scope=(f"one launch on the main path's input: layer 0 of the counted"
                f" dense SmolLM-360M prefill (B {b}, S = T = {s}, H {h}, Kv "
                f"{k.shape[2]}, dh {dh}, bf16, causal); ms, plain_ms, "
-               "library_ms: device time; launches: the counted dense prefill"
-               " (glasu_launches: the GLASU split's)"),
-        at_32k=flash32k)
+               "library_ms: device time; tflops: 4·dh flops a visible (query,"
+               " key) pair and head over ms; launches: the counted dense "
+               "prefill (glasu_launches: the GLASU split's)"),
+        at_32k=flash32k, fp32_kernel=flash_cases["fp32"])
 
 
 def main() -> int:
@@ -1902,7 +1986,7 @@ def main() -> int:
     phase_kernels_gcn(torch, graph_agg)
     phase_kernels_gat(torch, graph_agg)
     phase_kernels_csr(torch, np, graph_agg, csr_plan)
-    phase_kernels_flash(torch, flash)
+    flash_cases = phase_kernels_flash(torch, flash)
     phase_grads(torch, ops)
     phase_grads_csr(torch, np, ops, csr_plan)
     mods = dict(glasu=glasu, graph_agg=graph_agg, ops=ops,
@@ -1927,7 +2011,8 @@ def main() -> int:
                                    local_steps=1)), 16)}
     flash32k = phase_flash_32k(torch, flash)
     phase_result(torch, graph_agg, trained, served, powerlaw,
-                 get_preset("cora-gcnii-glasu").n_layers, lm, flash32k)
+                 get_preset("cora-gcnii-glasu").n_layers, lm, flash32k,
+                 flash_cases)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

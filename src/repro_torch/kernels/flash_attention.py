@@ -7,10 +7,13 @@ dtype, fp32 math inside.
 
 ``flash_attention_cuda`` launches ``csrc/flash_attention.cu`` and accepts
 only what that kernel reads correctly: fp32 or bf16 CUDA tensors of one
-dtype and device, any strides, dh a multiple of 8 up to 128. It raises on
-anything else and on a failed launch; it never falls back to the plain
-version. ``flash_attention_cuda.launches`` counts its launches, so a run can
-show that a path went through the kernel.
+dtype and device, dh a multiple of 8 up to 128, every query row seeing at
+least one key. bf16 runs on the tensor cores and reads rows with cp.async,
+so it also needs unit stride on dh and 16-byte aligned rows (see
+``_check_bf16_rows``); fp32 runs on the CUDA cores through any strides. It
+raises on anything else and on a failed launch; it never falls back to the
+plain version and never copies an input. ``flash_attention_cuda.launches``
+counts its launches, so a run can show that a path went through the kernel.
 
 ``flash_attention_plain`` repeats the kernel's arithmetic in plain PyTorch
 (q cast to fp32 and scaled before the dot, the finite NEG_INF on masked
@@ -81,17 +84,40 @@ def _check(fn, name, t, dtype, device):
                          f"{tuple(t.shape)}")
 
 
+def _check_bf16_rows(fn, name, t):
+    """The bf16 kernel copies each dh-row as 16-byte chunks: unit stride on
+    dh, every other stride of an extent above 1 a multiple of 8 elements,
+    a 16-byte aligned start."""
+    strided = any(n > 1 and st % 8 for n, st in zip(t.shape[:3],
+                                                    t.stride()[:3]))
+    if t.stride(3) != 1 or strided or t.data_ptr() % 16:
+        raise ValueError(
+            f"{fn}: bf16 {name} needs unit stride on dh and 16-byte aligned "
+            f"rows (strides a multiple of 8); got strides {tuple(t.stride())}"
+            f", start at byte {t.data_ptr() % 16} of 16")
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: Optional[int] = None):
     """Attention on the hand-written Hopper kernel.
 
     Same contract as ``flash_attention_plain``, forward only: q, k and v
-    fp32 or bf16 (all one dtype) on one CUDA device, read through their
-    strides; dh a multiple of 8 up to 128 (the wrapper raises above that);
-    window None or a positive int. The output is allocated here, contiguous
-    (B, S, H, dh) in q's dtype, and the kernel runs on the current stream.
+    fp32 or bf16 (all one dtype) on one CUDA device; dh a multiple of 8 up
+    to 128 (the wrapper raises above that); window None or a positive int,
+    with S < T + window so that every query row sees a key (the kernel and
+    the reference's Pallas kernel give such rows different values). fp32 is
+    read through any strides, bf16 as ``_check_bf16_rows`` says. The output
+    is allocated here, contiguous (B, S, H, dh) in q's dtype, and the
+    kernel runs on the current stream.
     """
     fn = "flash_attention_cuda"
+    if window is not None and all(isinstance(x, torch.Tensor)
+                                  and x.dim() == 4 for x in (q, k)) \
+            and q.shape[1] >= k.shape[1] + int(window):
+        raise ValueError(
+            f"{fn}: query rows {k.shape[1] + int(window) - 1} .. "
+            f"{q.shape[1] - 1} see no key (S {q.shape[1]} >= T {k.shape[1]} "
+            f"+ window {window}); the plain version is flash_attention_plain")
     if not isinstance(q, torch.Tensor) or q.device.type != "cuda":
         raise ValueError(f"{fn}: q must be a CUDA tensor (the plain version "
                          "is flash_attention_plain)")
@@ -117,6 +143,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         raise ValueError(f"{fn}: window must be None or >= 1, got {window}")
     if h > 65535 or b > 65535:
         raise ValueError(f"{fn}: more than 65535 heads or batch rows")
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            _check_bf16_rows(fn, name, x)
     out = torch.empty((b, s, h, dh), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out

@@ -161,4 +161,17 @@ FLASH_CASES = [
     ("dh 80 gqa 3:1", 2, 200, 200, 3, 1, 80, True, None, "float32"),
     ("dh 80 bf16", 2, 200, 200, 3, 1, 80, True, None, "bfloat16"),
     ("dh 128", 1, 130, 130, 4, 2, 128, True, None, "float32"),
+    # widths the bf16 kernel pads to a multiple of 16 (40 -> 48) or not (96),
+    # and S, T that are multiples of no tile (8, 16, 64, 128)
+    ("dh 40", 1, 150, 150, 4, 2, 40, True, None, "float32"),
+    ("dh 96 bidir", 1, 140, 140, 2, 1, 96, False, None, "float32"),
+    ("ragged s t", 1, 201, 333, 4, 2, 64, True, None, "float32"),
+    ("ragged s t bidir", 1, 201, 333, 4, 2, 64, False, None, "float32"),
 ]
+# every shape in both dtypes: the bf16 twin of each fp32 row (and the fp32
+# twin of each bf16 row), so the bf16 tensor-core kernel sees the windows,
+# ragged S and T, t > s, MQA and every head width
+FLASH_CASES += [
+    (f"{c[0]} bf16", *c[1:-1], "bfloat16") if c[-1] == "float32" else
+    (c[0].replace("bf16", "fp32"), *c[1:-1], "float32")
+    for c in FLASH_CASES if c[0] not in ("dh 80 gqa 3:1", "dh 80 bf16")]

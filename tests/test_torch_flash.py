@@ -146,3 +146,45 @@ def test_flash_cuda_wrapper_and_ops_refuse_what_they_cannot_run():
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
     assert tflash.flash_attention_cuda.launches == before
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_rows_that_see_no_key(causal):
+    """With a window, rows i >= T + window - 1 see no key (S 300, T 100,
+    window 4). The CUDA wrapper refuses such a call before it looks at the
+    device; the plain version keeps matching the reference's oracle there
+    (the reference's Pallas kernel, with its 128-key tiles, does not)."""
+    q, k, v = flash_inputs(9, 1, 300, 100, 2, 1, 16)
+    before = tflash.flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="see no key"):
+        tflash.flash_attention_cuda(*map(torch.from_numpy, (q, k, v)),
+                                    causal=causal, window=4)
+    assert tflash.flash_attention_cuda.launches == before
+    got = tflash.flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                       causal=causal, window=4)
+    want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal, window=4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **TOL["float32"])
+    # one row fewer and every row sees a key: no refusal for that reason
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tflash.flash_attention_cuda(
+            *map(torch.from_numpy, (q[:, :103], k, v)), causal=causal,
+            window=4)
+
+
+def test_flash_bf16_layout_check():
+    """The bf16 kernel copies 16-byte rows: slices of a packed qkv tensor
+    pass, a dh-strided view or a start 2 bytes into a row is refused."""
+    packed = torch.zeros(2, 30, 10, 40, dtype=torch.bfloat16)
+    q, k, v = packed[:, :, :6], packed[:, :, 6:8], packed[:, :, 8:]
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        tflash._check_bf16_rows("f", name, x)
+    wide = torch.zeros(1, 30, 2, 80, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"strides \(\d+, \d+, \d+, 2\)"):
+        tflash._check_bf16_rows("f", "q", wide[..., ::2])
+    with pytest.raises(ValueError, match="start at byte 2 of 16"):
+        tflash._check_bf16_rows("f", "q", wide[..., 1:41])
+    # a size-1 dim's stride never moves a row, so it is not held to 8
+    tflash._check_bf16_rows("f", "q", wide[:, :1, :1, :40].as_strided(
+        (1, 1, 1, 40), (3, 5, 7, 1)))
