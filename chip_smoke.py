@@ -11,9 +11,13 @@ Phases, each printing its own lines:
             the sources in this checkout (``src/repro_torch/kernels/csrc``,
             five sources, one nvcc each, all started together) and prints
             the build seconds and ptxas' register/shared-memory report;
+            a GAT or GCNII kernel that spills registers fails the run;
 3. kernels  holds each kernel (GCNII, GCN, GAT, CSR) against its plain
             PyTorch version on the card at the serving, training and eval
-            shapes and on ragged and masked shapes (for CSR: the
+            shapes and on ragged and masked shapes (GCNII and GAT also at
+            F+1 = 1 and 64, GAT at 17 and 32, a narrow head, fewer rows than
+            a block, GCNII at d = 128 and n_dst = 16, both with scalar
+            columns and a W that is not 16-byte sized; for CSR: the
             million-node serving shape, a planned ragged CSR with weights
             summing below 1, an empty graph, n_src = 16384, a hub tile and
             shuffled slabs), max abs error <= 1e-5 (fp32, sums in another
@@ -69,7 +73,10 @@ Phases, each printing its own lines:
             rounding, as on the main path), its bound and one
             ``scaled_dot_product_attention`` call (the yardstick, never
             called by the port);
-9. result   one JSON line listing every kernel, then the final JSON line.
+9. result   the empty-launch floor (one PyTorch op on a one-element
+            tensor, timed as the kernels are), each graph kernel's training
+            and cold-answer launches one by one beside their sums, one JSON
+            line listing every kernel, then the final JSON line.
 
 Each path's launch counters are zeroed just before its counted run and read
 just after it: the run fails if a kernel of the path was never launched.
@@ -136,6 +143,9 @@ POWERLAW_QUERY = tuple(range(0, 16000, 1000))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 REPS = 30
+# sources whose kernels must not spill registers (ptxas -v, checked at
+# build): the GAT and GCNII kernels, redesigned for latency
+NO_SPILL_SOURCES = ("gat_layer", "gcnii_layer")
 BF16_FLOP_PER_S = 989e12          # dense bf16 on the tensor cores (700 W)
 # flash kernel vs its plain version. fp32: the reference's flash tolerance
 # (tests/test_kernels.py), sums in another order. bf16, every case: kernel
@@ -307,6 +317,12 @@ def phase_build(build):
         print(f"build: {r.name} {state} -> {r.path.relative_to(ROOT)}")
         for kernel, report in _ptxas_report(r.log):
             print(f"build:   {kernel}: {report}")
+            if r.name in NO_SPILL_SOURCES and _spills(report):
+                raise AssertionError(f"{r.name}: ptxas spills in {kernel} "
+                                     f"({report})")
+        if r.name in NO_SPILL_SOURCES and not r.seconds:
+            print(f"build:   {r.name}: no ptxas report (built before this "
+                  "run), spill check not made")
     print("build: flash_attention dynamic shared memory a block, as its "
           "launches request it: bf16 tensor-core kernel 5·64·(dh_pad + 8)·2"
           " B: " + ", ".join(f"dh_pad {d}: {5 * 64 * (d + 8) * 2} B"
@@ -315,6 +331,13 @@ def phase_build(build):
           + ", ".join(f"dh_pad {d}: {(196 * d + 4352) * 4} B"
                       for d in (32, 64, 96, 128)))
     print(f"build: total {total:.2f} s")
+
+
+def _spills(report):
+    """True when a ptxas report line shows any byte of spill stores or
+    loads (a fresh build only: an already-built library has no log)."""
+    return any(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                           report))
 
 
 def _kernel_name(mangled):
@@ -363,33 +386,46 @@ def _gcnii_inputs(torch, gen, m, n_src, n_dst, f1, d, case):
 
 
 def _compare(torch, graph_agg, args, kw):
-    got = graph_agg.gcnii_layer_cuda(*args, **kw)
+    """Max abs error of the kernel's output and saved z against the plain
+    version; raises on non-finite output or if save=True changed it."""
+    got, z = graph_agg.gcnii_layer_cuda(*args, **kw, save=True)
+    out_only = graph_agg.gcnii_layer_cuda(*args, **kw)
     torch.cuda.synchronize()
-    want = graph_agg.gcnii_layer_plain(*args, **kw)
-    if not torch.isfinite(got).all():
-        raise AssertionError("gcnii_layer_cuda produced non-finite values")
-    return float((got - want).abs().max())
+    want, want_z = graph_agg.gcnii_layer_plain(*args, **kw, save=True)
+    if not (torch.isfinite(got).all() and torch.equal(got, out_only)):
+        raise AssertionError("gcnii_layer_cuda produced non-finite values, "
+                             "or save=True changed the output")
+    return max(float((got - want).abs().max()),
+               float((z - want_z).abs().max()))
 
 
 def phase_kernels(torch, graph_agg):
     """Kernel vs plain on the serving shapes and ragged ones."""
     gen = torch.Generator().manual_seed(SEED)
-    m, f1, d = 3, 33, 64
+    m, d = 3, 64
     cases = [
-        # label, n_src, n_dst, d, case, beta
-        ("serve l0", 2708, 2708, d, "", 0.5),
-        ("serve l1", 2708, 2708, d, "", 0.5 / 2),
-        ("serve l2", 2708, 1552, d, "", 0.5 / 3),
-        ("serve l3", 1552, 16, d, "", 0.5 / 4),
-        ("precompute", 2708, 4096, d, "", 0.5),
-        ("d=24", 300, 200, 24, "", 0.5),
-        ("n_dst=1", 2708, 1, d, "", 0.5),
-        ("n_dst=1001 (ragged tile)", 2708, 1001, d, "", 0.5),
-        ("zero-mask rows", 500, 300, d, "zero-mask rows", 0.5),
-        ("mask[:,0]=0", 500, 300, d, "mask[:,0]=0", 0.5),
+        # label, n_src, n_dst, d, F+1, case, beta
+        ("serve l0", 2708, 2708, d, 33, "", 0.5),
+        ("serve l1", 2708, 2708, d, 33, "", 0.5 / 2),
+        ("serve l2", 2708, 1552, d, 33, "", 0.5 / 3),
+        ("serve l3", 1552, 16, d, 33, "", 0.5 / 4),
+        ("precompute", 2708, 4096, d, 33, "", 0.5),
+        ("d=24", 300, 200, 24, 33, "", 0.5),
+        ("n_dst=1", 2708, 1, d, 33, "", 0.5),
+        ("n_dst=1001 (ragged tile)", 2708, 1001, d, 33, "", 0.5),
+        ("zero-mask rows", 500, 300, d, 33, "zero-mask rows", 0.5),
+        ("mask[:,0]=0", 500, 300, d, 33, "mask[:,0]=0", 0.5),
+        # the kernel's batch and block edges: self only, a fanout of four
+        # whole batches, W of 64 KB (the shared-memory opt-in), the
+        # training layer-3 destination count
+        ("F+1=1 (self only)", 500, 300, d, 1, "", 0.5),
+        ("F+1=64", 500, 300, d, 64, "", 0.5),
+        ("d=128 (W 64 KB)", 500, 300, 128, 33, "", 0.5),
+        ("n_dst=16", 64, 16, d, 4, "", 0.5 / 4),
+        ("d=7 (scalar columns, W not 16-byte sized)", 100, 50, 7, 5, "", 0.5),
     ]
     worst = 0.0
-    for label, n_src, n_dst, dd, case, beta in cases:
+    for label, n_src, n_dst, dd, f1, case, beta in cases:
         args = _gcnii_inputs(torch, gen, m, n_src, n_dst, f1, dd, case)
         kw = dict(alpha=0.1, beta=beta)
         err = _compare(torch, graph_agg, args, kw)
@@ -519,6 +555,17 @@ def phase_kernels_gat(torch, graph_agg):
         ("all-masked rows F+1=33", 2708, 300, 33, 64, 2, 32,
          "all-masked rows"),
         ("mask[:,0]=0", 500, 300, 33, 64, 2, 32, "mask[:,0]=0"),
+        # the lane-group edges: self only (one lane a row), 17 (a group of
+        # 32 lanes, two batches), 32 (a full warp), 64 (two entries a lane);
+        # a narrow head; fewer destination rows than one block owns
+        ("F+1=1 (self only)", 500, 300, 1, 64, 2, 32, ""),
+        ("F+1=17", 500, 300, 17, 64, 2, 32, ""),
+        ("F+1=32", 500, 300, 32, 64, 2, 32, ""),
+        ("F+1=64", 500, 300, 64, 64, 2, 32, ""),
+        ("H1 dh8", 300, 200, 5, 16, 1, 8, ""),
+        ("n_dst=3", 64, 3, 4, 64, 2, 32, ""),
+        ("d=7 H3 dh6 (scalar columns, W not 16-byte sized)", 120, 50, 5, 7,
+         3, 6, ""),
     ]
     worst = 0.0
     for label, n_src, n_dst, f1, d, heads, dh, case in cases:
@@ -1823,6 +1870,17 @@ def _replay(torch, captured, cuda_fn, plain_fn, bound_fn):
     return rows
 
 
+def _empty_launch(torch):
+    """The yardstick of a bare launch: device time and host-inclusive time
+    of one PyTorch op on a one-element tensor, timed as every kernel here
+    is (_time_ms). The port never calls it."""
+    one = torch.zeros(1, device="cuda")
+    return dict(ms=_time_ms(torch, lambda: one.add_(1.0)),
+                launch_ms=_time_ms(torch, lambda: one.add_(1.0),
+                                   preload=False),
+                op="torch.Tensor.add_ on a 1-element float32 tensor")
+
+
 def _sums(rows):
     by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
     by_ops = sum(r["bound_ms"] for r in rows) - by_bytes
@@ -1849,6 +1907,10 @@ def phase_result(torch, graph_agg, trained, served, powerlaw, n_layers, lm,
              "preset's counted 200-round Trainer run")
     gather_note = "no single PyTorch call computes the masked gather-mean " \
                   "with the fused matmul"
+    floor = _empty_launch(torch)
+    print(f"result: empty-launch floor {floor['ms']:.4f} ms device, "
+          f"{floor['launch_ms']:.4f} ms with the host ({floor['op']}; a "
+          "yardstick the port never calls)")
     entries = []
     for name, fn, plain, bound, source, replaces, note in (
             ("graph_agg", graph_agg.graph_agg_cuda, graph_agg.graph_agg_plain,
@@ -1869,11 +1931,22 @@ def phase_result(torch, graph_agg, trained, served, powerlaw, n_layers, lm,
                      replaces=replaces, launches=run["launches"],
                      max_abs_err=max(r["max_abs_err"] for r in rows),
                      **_sums(rows), library_ms=None, library_note=note,
-                     scope=scope.format(preset=preset), per_launch=rows)
+                     scope=scope.format(preset=preset), per_launch=rows,
+                     empty_launch=floor)
+        print(f"result: {name} training, per launch (device ms / with the "
+              "host): " + ", ".join(
+                  f"{r['n_src']}->{r['n_dst']} {r['ms']:.4f} / "
+                  f"{r['launch_ms']:.4f}" for r in rows)
+              + f"; sum {entry['ms']:.4f} / {entry['launch_ms']:.4f}")
         if f"{name}_cuda" in served:
             serve_launches, serve_captured = served[f"{name}_cuda"]
             serve_rows = _replay(torch, serve_captured, fn, plain, bound)
             cold = _sums(serve_rows[:n_layers])
+            print(f"result: {name} serving, per launch of a cold answer "
+                  "(device ms): " + ", ".join(
+                      f"{r['n_src']}->{r['n_dst']} {r['ms']:.4f}"
+                      for r in serve_rows[:n_layers])
+                  + f"; sum {cold['ms']:.4f}")
             entry.update(
                 max_abs_err=max(entry["max_abs_err"],
                                 max(r["max_abs_err"] for r in serve_rows)),

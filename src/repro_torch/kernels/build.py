@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds) and
 is loaded with ``ctypes``. Libraries go to ``build/kernels/`` at the root of
-the checkout, named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. Builds happen at first use,
+the checkout, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one is reused. Builds happen at first use,
 never at import: ``import repro_torch`` works on a machine without CUDA.
 """
 from __future__ import annotations
@@ -84,8 +85,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Where kernel ``name``'s library goes: named by a hash of its source,
+    every shared header in ``csrc`` (``*.cuh``) and the flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

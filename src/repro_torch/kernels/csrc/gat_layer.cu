@@ -1,5 +1,5 @@
 // Fused multi-head GAT client sub-layer for Hopper (sm_90a), all clients in
-// one call of two launches.
+// one call of two launches chained by programmatic dependent launch.
 //
 // Replaces the TPU kernel `_gat_kernel` / `gat_layer_pallas` in
 // src/repro/kernels/graph_agg.py. For every client m, destination row r and
@@ -22,32 +22,59 @@
 //
 // What bounds it on this card: at the training shapes (M = 3, n_src <= 512,
 // n_dst <= 512, F+1 = 4, d = 64, H = 2, dh = 32) one call moves ~0.9 MB and
-// does ~13 MFLOP (~0.3 us and ~0.2 us at 3.35 TB/s and 67 TFLOP/s fp32): it
-// costs its two launches' latency. At the eval shape (n_src = n_dst = 2708,
-// F+1 = 33) the unique bytes are ~4.5 MB and the attention pass re-reads
-// ~69 MB of wh rows through L2; the dependent idx -> score -> wh loads of a
-// row set its time.
+// does ~13 MFLOP (~0.3 us and ~0.2 us at 3.35 TB/s and 67 TFLOP/s fp32), so
+// it costs latency: two launches, and within each a chain of dependent
+// steps (W and h -> wh and scores; idx -> scores -> softmax -> wh rows ->
+// out). Tensor cores would buy nothing here and cost the error budget. At
+// the eval shape (n_src = n_dst = 2708, F+1 = 33) the attention pass
+// re-reads ~69 MB of wh rows through L2, and the loads in flight set the
+// time. The design cuts each chain to as few round trips as it can:
+//  - Programmatic dependent launch (PDL) chains the two passes: (b) goes
+//    out with the programmatic stream serialisation attribute, (a)
+//    triggers its dependents as soon as it has issued its copies, so (b)'s
+//    blocks are resident and have run their prologue (idx and mask by
+//    cp.async into shared memory, each entry's source row resolved, b
+//    loaded) when (a) drains; griddepcontrol.wait then returns once (a) has
+//    finished and its stores are visible, and only after it does (b) read
+//    wh or a score. Against triggering after the last store, against two
+//    plain launches and against one cooperative launch with a grid-wide
+//    barrier (which cannot launch at the eval shape: the grid outgrows the
+//    blocks the card holds at once), this was the fastest at every shape
+//    measured (tools/gat_chain_variants.py; PERF.md, PR 17).
+//  - (a) gat_project_kernel: a block owns `rows` source rows of one client
+//    (blockIdx.y = m; blocks shrink to a warp while the grid would leave
+//    SMs idle). Thread 0 hands the client's W (d x H*dh, 16 KB at 64 x 64,
+//    one contiguous block) to the copy engine with one cp.async.bulk on an
+//    mbarrier while every thread cp.asyncs its rows of h. A lane group
+//    covers a pair of rows, each lane VEC adjacent columns of both: 2 x VEC
+//    independent accumulators a thread, each W float4 feeding both rows,
+//    h and W read kStage k-steps ahead. The per-head scores wh.a_src and
+//    wh.a_dst come from those registers in the same pass, by a chain of
+//    shuffles that hands the partial sum lane to lane in column order.
+//  - (b) gat_attend_kernel: phase A runs a lane group per destination row
+//    sized to the fanout (the next power of two >= F+1, capped at 32) times
+//    the heads it takes side by side, so at F+1 = 4 one warp serves four
+//    rows, both heads at once; each lane issues its score loads before the
+//    first max. Phase B runs a group per row over the output columns
+//    (float4 segments of the gathered wh rows) and issues the loads of a
+//    batch of up to 16 fanout entries before the first add: the resolved
+//    source table (padded to whole batches) leaves no branch or select on a
+//    loaded index to split a batch into dependent loads. A masked entry
+//    reads the row's self row, in flight anyway, with att = 0.
+//  - Two register budgets of each kernel (graph_common.cuh, pick_wide): the
+//    wide build keeps a whole batch of loads in flight and is taken where
+//    the grid fits on the card at once with it (the training shapes); the
+//    narrow one, eight blocks an SM, past that (eval, serving).
+// Indices are clamped to [0, n_src), as in the other kernels.
 //
-// Design. The TPU kernel re-projects all n_src rows for every (dst tile,
-// head) program and gathers through one-hot (128 x n_src) matmuls per
-// fanout column; here the projection runs once per source row and the
-// gather is direct.
-//  (a) gat_project_kernel: a block owns kProjRows source rows of one client
-//      (blockIdx.y = m); the client's W (d x H*dh, 16 KB at 64 x 64) and the
-//      rows of h are staged in shared memory, wh is computed in fp32 FMA and
-//      written out, and the per-head scores wh.a_src and wh.a_dst are fused
-//      into the epilogue, so the attention pass reads two floats a
-//      (source, head) instead of dh.
-//  (b) gat_attend_kernel: one warp per destination row of one client, all
-//      heads. Lanes run over the fanout for the logits and the softmax
-//      (warp shuffles for max and sum; a per-warp shared buffer holds the
-//      F+1 logits, so any fanout works), then over the H*dh output columns
-//      for the attention-weighted sum, one coalesced row segment of wh per
-//      fanout entry; entries with att = 0 are skipped (their term is 0 * wh).
-// Any H and dh work (lanes stride over columns). Indices are clamped to
-// [0, n_src), as in the other kernels. fp32 throughout, no TF32; expf and
-// expm1f are the accurate versions (no fast math). Tensor cores,
-// asynchronous copies and fusing (a) into (b) are left for a later change.
+// Precision: fp32 FMA throughout, no TF32, accurate expf / expm1f (no fast
+// math). Every sum runs in the order of the PR 13 kernel, so the outputs
+// are bitwise its outputs: the projection and each score over k / j
+// ascending in one fmaf chain from 0, the softmax's max and sum as the
+// butterfly of per-lane partials over f ascending (lanes past F+1 hold
+// exactly 0), the weighted sum over f ascending; a masked entry's term is
+// fmaf(0, wh, acc) = acc exactly for finite wh, as the skip gave (acc
+// starts at +0 and is never -0).
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -57,151 +84,388 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "graph_common.cuh"
+
 namespace {
 
-constexpr int kProjRows = 16;                 // source rows per block in (a)
-constexpr int kProjThreads = 256;
-constexpr int kAttWarps = 8;                  // destination rows per block in (b)
-constexpr int kAttThreads = kAttWarps * 32;
-constexpr size_t kMaxSmem = 232448;           // 227 KB a block may opt into
-constexpr float kNegInf = -1e9f;              // the reference's mask fill
+using namespace graph_common;
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+constexpr int kThreads = 128;
+constexpr int kStage = 8;            // k-steps of h @ W staged at once
+constexpr int kRowsPerThread = 2;    // rows of h @ W a thread, sharing W reads
+constexpr int kTargetBlocks = 132;   // an SM each, where the rows allow
+constexpr size_t kMaxSmem = 232448;  // 227 KB a block may opt into
+constexpr float kNegInf = -1e9f;     // the reference's mask fill
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ int clamp_idx(int i, int n) {
+  return min(max(i, 0), n - 1);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// (a) wh = h @ W and scores[n] = (wh.a_src per head, wh.a_dst per head).
+// A lane group of `lpr` lanes covers kRowsPerThread of the block's `rows`
+// rows, lane lg the column groups cg = lg, lg + lpr, ... (VEC columns
+// each). Every lane runs every shuffle loop the same number of times.
+template <int VEC>
+__device__ __forceinline__ void
+project_rows(const float* __restrict__ h, const float* __restrict__ w,
+             const float* __restrict__ a_src,
+             const float* __restrict__ a_dst, float* __restrict__ wh,
+             float* __restrict__ scores, int n_src, int d, int n_heads,
+             int dh, int lpr, int rows) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t w_bar;
+  const int hd = n_heads * dh;
+  const int hp = (d + 3) / 4 * 4 + 4;  // padded h row: float4 reads,
+                                       // no bank conflict
+  float* w_s = smem;                         // (d, hd) weights of client m
+  float* h_s = smem + (d * hd + 3) / 4 * 4;  // (rows, hp), 16-byte aligned
+
+  const int m = blockIdx.y;
+  const int r0 = blockIdx.x * rows;
+  const int nrows = min(rows, n_src - r0);
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const float* hm = h + (static_cast<size_t>(m) * n_src + r0) * d;
+
+  BulkLoad w_load{&w_bar, false};
+  w_load.start(w_s, w + static_cast<size_t>(m) * d * hd, d * hd, tid,
+               nthreads);
+  // the attention grid may start its prologue now: it reads nothing of
+  // this grid before its griddepcontrol.wait, which returns only once this
+  // grid has finished and its stores are visible (triggering after the
+  // stores instead measured slower; PERF.md, PR 17)
+  pdl_launch_dependents();
+  if (d % 4 == 0 && ((reinterpret_cast<uintptr_t>(hm) |
+                      reinterpret_cast<uintptr_t>(h_s)) & 15) == 0) {
+    const int q = d / 4;
+    for (int i = tid; i < nrows * q; i += nthreads)
+      cp_async16(h_s + (i / q) * hp + (i % q) * 4, hm + i * 4);
+  } else {
+    for (int i = tid; i < nrows * d; i += nthreads)
+      cp_async4(h_s + (i / d) * hp + i % d, hm + i);
+  }
+
+  const int ncg = hd / VEC;
+  const int npass = (ncg + lpr - 1) / lpr;
+  const int grp = tid / lpr;
+  const int lg = tid % lpr;
+  const int gph = dh / VEC;        // column groups a head
+  const int h2 = 2 * n_heads;
+  const float* as_m = a_src + static_cast<size_t>(m) * hd;
+  const float* ad_m = a_dst + static_cast<size_t>(m) * hd;
+  float* whm = wh + (static_cast<size_t>(m) * n_src + r0) * hd;
+  float* sm = scores + (static_cast<size_t>(m) * n_src + r0) * h2;
+
+  cp_async_wait_all();
+  __syncthreads();
+  w_load.wait();
+
+  // a group owns rows ra .. ra + kRowsPerThread - 1: every W read feeds all
+  const int ra = grp * kRowsPerThread;
+  bool row_ok[kRowsPerThread];
+  const float* hr[kRowsPerThread];
+  float cs[kRowsPerThread], cd[kRowsPerThread];  // chains into next pass
+#pragma unroll
+  for (int t = 0; t < kRowsPerThread; ++t) {
+    row_ok[t] = ra + t < nrows;
+    hr[t] = h_s + (row_ok[t] ? ra + t : 0) * hp;
+    cs[t] = cd[t] = 0.f;
+  }
+  for (int j = 0; j < npass; ++j) {
+    const int cg = j * lpr + lg;
+    const bool live = cg < ncg;
+    const int c0 = (live ? cg : 0) * VEC;
+    float as[VEC], ad[VEC];
+    load_vec<VEC>(as_m + c0, as);
+    load_vec<VEC>(ad_m + c0, ad);
+    float acc[kRowsPerThread][VEC];
+#pragma unroll
+    for (int t = 0; t < kRowsPerThread; ++t)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[t][i] = 0.f;
+    // kStage k-steps' operands are read before their FMAs, so the reads
+    // overlap; each sum still runs k = 0, 1, ...
+    int k0 = 0;
+    for (; k0 + kStage <= d; k0 += kStage) {
+      float wv[kStage][VEC], hv[kRowsPerThread][kStage];
+#pragma unroll
+      for (int t = 0; t < kRowsPerThread; ++t)
+        load_run<kStage>(hr[t] + k0, hv[t]);
+#pragma unroll
+      for (int u = 0; u < kStage; ++u)
+        load_vec<VEC>(w_s + (k0 + u) * hd + c0, wv[u]);
+#pragma unroll
+      for (int u = 0; u < kStage; ++u)
+#pragma unroll
+        for (int t = 0; t < kRowsPerThread; ++t)
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            acc[t][i] = fmaf(hv[t][u], wv[u][i], acc[t][i]);
+    }
+    for (int k = k0; k < d; ++k) {
+      float wv[VEC];
+      load_vec<VEC>(w_s + k * hd + c0, wv);
+#pragma unroll
+      for (int t = 0; t < kRowsPerThread; ++t)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          acc[t][i] = fmaf(hr[t][k], wv[i], acc[t][i]);
+    }
+#pragma unroll
+    for (int t = 0; t < kRowsPerThread; ++t)
+      if (row_ok[t] && live)
+        store_vec<VEC>(whm + (ra + t) * hd + c0, acc[t]);
+
+    // score chains: the lane at position pos of its head continues the
+    // sum its left neighbour (or, at lane 0, the previous pass) left
+    const int pos = cg % gph;
+    const int step = (pos == 0 || lg == 0) ? 0 : min(pos, lg);
+    float vs[kRowsPerThread], vd[kRowsPerThread];
+#pragma unroll
+    for (int t = 0; t < kRowsPerThread; ++t) vs[t] = vd[t] = 0.f;
+    // every lane runs every step and keeps its result only at its own
+    // step: no branch, so the rows' and both scores' chains interleave
+    const int nsteps = min(gph, lpr);
+    for (int st = 0; st < nsteps; ++st) {
+#pragma unroll
+      for (int t = 0; t < kRowsPerThread; ++t) {
+        const float in_s = __shfl_up_sync(kFull, vs[t], 1, lpr);
+        const float in_d = __shfl_up_sync(kFull, vd[t], 1, lpr);
+        float ts = pos == 0 ? 0.f : (lg == 0 ? cs[t] : in_s);
+        float td = pos == 0 ? 0.f : (lg == 0 ? cd[t] : in_d);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          ts = fmaf(acc[t][i], as[i], ts);
+          td = fmaf(acc[t][i], ad[i], td);
+        }
+        vs[t] = step == st ? ts : vs[t];
+        vd[t] = step == st ? td : vd[t];
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kRowsPerThread; ++t) {
+      cs[t] = __shfl_sync(kFull, vs[t], lpr - 1, lpr);
+      cd[t] = __shfl_sync(kFull, vd[t], lpr - 1, lpr);
+      if (row_ok[t] && live && pos == gph - 1) {
+        const int k = cg / gph;
+        sm[(ra + t) * h2 + k] = vs[t];
+        sm[(ra + t) * h2 + n_heads + k] = vd[t];
+      }
+    }
+  }
 }
 
-// (a) wh = h @ W and scores[n] = (wh.a_src per head, wh.a_dst per head)
-__global__ void __launch_bounds__(kProjThreads)
+template <int VEC>
+__global__ void __launch_bounds__(kThreads, 8)
 gat_project_kernel(const float* __restrict__ h, const float* __restrict__ w,
                    const float* __restrict__ a_src,
                    const float* __restrict__ a_dst, float* __restrict__ wh,
                    float* __restrict__ scores, int n_src, int d, int n_heads,
-                   int dh) {
-  extern __shared__ float smem[];
+                   int dh, int lpr, int rows) {
+  project_rows<VEC>(h, w, a_src, a_dst, wh, scores, n_src, d, n_heads, dh,
+                    lpr, rows);
+}
+
+// the same with the register budget of one block an SM (pick_wide)
+template <int VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+gat_project_kernel_wide(const float* __restrict__ h,
+                        const float* __restrict__ w,
+                        const float* __restrict__ a_src,
+                        const float* __restrict__ a_dst,
+                        float* __restrict__ wh, float* __restrict__ scores,
+                        int n_src, int d, int n_heads, int dh, int lpr,
+                        int rows) {
+  project_rows<VEC>(h, w, a_src, a_dst, wh, scores, n_src, d, n_heads, dh,
+                    lpr, rows);
+}
+
+// (b) masked softmax attention over the fanout, mix, bias, elu. Phase A: a
+// lane group of gf * gh lanes a row, lane (hs, fl) the heads hs, hs + gh,
+// ... and the entries fl, fl + gf, ...; phase B: a group of gb lanes a row,
+// lane lb the column groups lb, lb + gb, ... A block owns `rows` rows, one
+// a group of the wider kind; groups past them (and past n_dst) still run
+// phase A's shuffles, on a real row's data, and store nothing.
+template <int VEC, int BATCH>
+__device__ __forceinline__ void
+attend_rows(const int* __restrict__ idx, const float* __restrict__ mask,
+            const float* __restrict__ wh,
+            const float* __restrict__ scores,
+            const float* __restrict__ b, float* __restrict__ out,
+            float* __restrict__ p_out, float* __restrict__ x_out,
+            int n_src, int n_dst, int f1, int n_heads, int dh, int gf,
+            int gh, int gb, int rows) {
+  extern __shared__ __align__(16) float smem[];
   const int hd = n_heads * dh;
-  float* w_s = smem;                    // (d, hd) weights of client m
-  float* h_s = w_s + d * hd;            // (kProjRows, d) rows of h
-  float* o_s = h_s + kProjRows * d;     // (kProjRows, hd) rows of wh
+  const int f1p = (f1 + BATCH - 1) / BATCH * BATCH;  // whole batches
+  int* idx_s = reinterpret_cast<int*>(smem);  // (rows, f1) source ids
+  float* mask_s = smem + rows * f1;           // (rows, f1)
+  int* src_s = reinterpret_cast<int*>(mask_s + rows * f1);  // (rows, f1p)
+  float* att_s = mask_s + rows * f1 + rows * f1p;  // (rows, f1p, H) att
 
   const int m = blockIdx.y;
-  const int row0 = blockIdx.x * kProjRows;
-  const int rows = min(kProjRows, n_src - row0);
-  const float* hm = h + (static_cast<size_t>(m) * n_src + row0) * d;
-  const float* wm = w + static_cast<size_t>(m) * d * hd;
-  float* whm = wh + (static_cast<size_t>(m) * n_src + row0) * hd;
-  float* sm = scores + (static_cast<size_t>(m) * n_src + row0) * 2 * n_heads;
+  const int r0 = blockIdx.x * rows;
+  const int nrows = min(rows, n_dst - r0);
+  const int tid = threadIdx.x;
+  const size_t row0 = static_cast<size_t>(m) * n_dst + r0;
 
-  for (int i = threadIdx.x; i < d * hd; i += kProjThreads) w_s[i] = wm[i];
-  for (int i = threadIdx.x; i < rows * d; i += kProjThreads) h_s[i] = hm[i];
+  // prologue, overlapping the projection: nothing here reads its output
+  copy_async(idx_s, idx + row0 * f1, nrows * f1, tid, kThreads);
+  copy_async(mask_s, mask + row0 * f1, nrows * f1, tid, kThreads);
+  const int ncg = hd / VEC;
+  const int sb = __ffs(gb) - 1;  // group widths are powers of two
+  const int grp_b = tid >> sb;
+  const int lb = tid & (gb - 1);
+  const float* bm = b + static_cast<size_t>(m) * hd;
+  float bias0[VEC];
+  load_vec<VEC>(bm + min(lb, ncg - 1) * VEC, bias0);
+  cp_async_wait_all();
   __syncthreads();
-
-  // consecutive threads take consecutive columns: w_s reads are
-  // conflict-free, h_s reads a broadcast
-  for (int i = threadIdx.x; i < rows * hd; i += kProjThreads) {
-    const int r = i / hd;
-    const int c = i - r * hd;
-    const float* hr = h_s + r * d;
-    float acc = 0.f;
-    for (int k = 0; k < d; ++k) acc = fmaf(hr[k], w_s[k * hd + c], acc);
-    o_s[i] = acc;
-    whm[i] = acc;
+  // each entry's source row for the weighted sum, resolved once: a masked
+  // entry (and the padding up to whole batches, att 0) reads the row's
+  // self row, in flight anyway
+  for (int i = tid; i < nrows * f1p; i += kThreads) {
+    const int r = i / f1p;
+    const int f = i - r * f1p;
+    const bool live = f < f1 && mask_s[r * f1 + f] != 0.f;
+    src_s[i] = clamp_idx(idx_s[r * f1 + (live ? f : 0)], n_src);
+    if (f >= f1)
+      for (int k = 0; k < n_heads; ++k) att_s[i * n_heads + k] = 0.f;
   }
   __syncthreads();
+  pdl_wait();  // wh and the scores are complete and visible from here on
 
-  // scores of row r: [a_src . wh_k for k < H, a_dst . wh_k for k < H]
-  const float* asm_ = a_src + static_cast<size_t>(m) * hd;
-  const float* adm = a_dst + static_cast<size_t>(m) * hd;
-  for (int i = threadIdx.x; i < rows * 2 * n_heads; i += kProjThreads) {
-    const int r = i / (2 * n_heads);
-    const int which = (i - r * 2 * n_heads) / n_heads;
-    const int k = i - r * 2 * n_heads - which * n_heads;
-    const float* a = (which == 0 ? asm_ : adm) + k * dh;
-    const float* o = o_s + r * hd + k * dh;
-    float acc = 0.f;
-    for (int j = 0; j < dh; ++j) acc = fmaf(o[j], a[j], acc);
-    sm[i] = acc;
+  // phase A: logits, softmax, attention
+  const int ga = gf * gh;
+  const int sa = __ffs(ga) - 1;
+  const int grp_a = tid >> sa;
+  const int hs = (tid & (ga - 1)) >> (__ffs(gf) - 1);
+  const int fl = tid & (gf - 1);
+  const int h2 = 2 * n_heads;
+  const float* sm = scores + static_cast<size_t>(m) * n_src * h2;
+  const int ne = (f1 + gf - 1) / gf;
+  const int nk = (n_heads + gh - 1) / gh;
+  const int rr = grp_a;
+  const bool row_ok = rr < nrows;
+  const int* ir = idx_s + (row_ok ? rr : 0) * f1;
+  const float* mr = mask_s + (row_ok ? rr : 0) * f1;
+  float* ar = att_s + rr * f1p * n_heads;
+  const size_t row = row0 + rr;
+  const float* s_self =
+      sm + static_cast<size_t>(clamp_idx(ir[0], n_src)) * h2;
+  for (int kk = 0; kk < nk; ++kk) {
+    const int k = hs + gh * kk;
+    const bool ok = row_ok && k < n_heads;  // one value a gf-lane group
+    const int kc = k < n_heads ? k : 0;
+    const float ss = s_self[kc];
+    float mx = -INFINITY;
+    for (int e = 0; e < ne; ++e) {
+      const int f = fl + gf * e;
+      if (ok && f < f1) {
+        const float xv = ss + sm[static_cast<size_t>(clamp_idx(ir[f], n_src))
+                                     * h2 + n_heads + kc];
+        float ev = xv >= 0.f ? xv : 0.2f * xv;
+        if (!(mr[f] > 0.f)) ev = kNegInf;
+        ar[f * n_heads + k] = ev;
+        if (x_out != nullptr) x_out[(row * f1 + f) * n_heads + k] = xv;
+        mx = fmaxf(mx, ev);
+      }
+    }
+    for (int o = gf / 2; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+    float sum = 0.f;
+    for (int e = 0; e < ne; ++e) {
+      const int f = fl + gf * e;
+      if (ok && f < f1) {
+        const float pv = expf(ar[f * n_heads + k] - mx);
+        ar[f * n_heads + k] = pv;
+        sum += pv;
+      }
+    }
+    for (int o = gf / 2; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(kFull, sum, o);
+    for (int e = 0; e < ne; ++e) {
+      const int f = fl + gf * e;
+      if (ok && f < f1) {
+        const float pv = ar[f * n_heads + k] / sum;
+        if (p_out != nullptr) p_out[(row * f1 + f) * n_heads + k] = pv;
+        ar[f * n_heads + k] = pv * mr[f];
+      }
+    }
+  }
+
+  __syncthreads();
+
+  // phase B: out = elu(sum_f att[f] * wh[src_f] + b), f ascending
+  const float* whm = wh + static_cast<size_t>(m) * n_src * hd;
+  if (const int rr = grp_b; rr < nrows) {
+    const int* sr = src_s + rr * f1p;
+    const float* ar = att_s + rr * f1p * n_heads;
+    float* outr = out + (row0 + rr) * hd;
+    for (int cg = lb; cg < ncg; cg += gb) {
+      const int c0 = cg * VEC;
+      const int k = c0 / dh;
+      float acc[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+      for (int fb = 0; fb < f1; fb += BATCH) {
+        float a[BATCH];
+        float v[BATCH][VEC];
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+          a[u] = ar[(fb + u) * n_heads + k];
+          load_vec<VEC>(whm + static_cast<size_t>(sr[fb + u]) * hd + c0, v[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[i] = fmaf(a[u], v[u][i], acc[i]);
+        }
+      }
+      float bv[VEC];
+      if (cg == lb) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) bv[i] = bias0[i];
+      } else {
+        load_vec<VEC>(bm + c0, bv);
+      }
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float y = acc[i] + bv[i];
+        acc[i] = y > 0.f ? y : expm1f(y);
+      }
+      store_vec<VEC>(outr + c0, acc);
+    }
   }
 }
 
-// (b) masked softmax attention over the fanout, mix, bias, elu
-__global__ void __launch_bounds__(kAttThreads)
+template <int VEC, int BATCH>
+__global__ void __launch_bounds__(kThreads, 8)
 gat_attend_kernel(const int* __restrict__ idx, const float* __restrict__ mask,
                   const float* __restrict__ wh,
                   const float* __restrict__ scores,
                   const float* __restrict__ b, float* __restrict__ out,
                   float* __restrict__ p_out, float* __restrict__ x_out,
-                  int n_src, int n_dst, int f1, int n_heads, int dh) {
-  extern __shared__ float smem[];
-  const int hd = n_heads * dh;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  // per warp: f1 clamped source ids, then (f1, H) logits / attention
-  int* src_s = reinterpret_cast<int*>(smem) + warp * f1;
-  float* att_s = smem + kAttWarps * f1 + warp * f1 * n_heads;
+                  int n_src, int n_dst, int f1, int n_heads, int dh, int gf,
+                  int gh, int gb, int rows) {
+  attend_rows<VEC, BATCH>(idx, mask, wh, scores, b, out, p_out, x_out, n_src,
+                          n_dst, f1, n_heads, dh, gf, gh, gb, rows);
+}
 
-  const int m = blockIdx.y;
-  const int r = blockIdx.x * kAttWarps + warp;
-  if (r >= n_dst) return;  // ragged last tile; no block barrier follows
-
-  const size_t row = static_cast<size_t>(m) * n_dst + r;
-  const int* ir = idx + row * f1;
-  const float* mr = mask + row * f1;
-  const float* sm = scores + static_cast<size_t>(m) * n_src * 2 * n_heads;
-  const float* whm = wh + static_cast<size_t>(m) * n_src * hd;
-
-  for (int f = lane; f < f1; f += 32) src_s[f] = min(max(ir[f], 0), n_src - 1);
-  __syncwarp();
-  const float* s_self = sm + static_cast<size_t>(src_s[0]) * 2 * n_heads;
-
-  // each lane owns fanout entries f = lane, lane + 32, ... in every pass
-  for (int k = 0; k < n_heads; ++k) {
-    const float ss = s_self[k];
-    float mx = -INFINITY;
-    for (int f = lane; f < f1; f += 32) {
-      const float xv =
-          ss + sm[static_cast<size_t>(src_s[f]) * 2 * n_heads + n_heads + k];
-      float e = xv >= 0.f ? xv : 0.2f * xv;
-      if (!(mr[f] > 0.f)) e = kNegInf;
-      att_s[f * n_heads + k] = e;
-      if (x_out != nullptr) x_out[(row * f1 + f) * n_heads + k] = xv;
-      mx = fmaxf(mx, e);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int f = lane; f < f1; f += 32) {
-      const float pv = expf(att_s[f * n_heads + k] - mx);
-      att_s[f * n_heads + k] = pv;
-      sum += pv;
-    }
-    sum = warp_sum(sum);
-    for (int f = lane; f < f1; f += 32) {
-      const float pv = att_s[f * n_heads + k] / sum;
-      if (p_out != nullptr) p_out[(row * f1 + f) * n_heads + k] = pv;
-      att_s[f * n_heads + k] = pv * mr[f];
-    }
-  }
-  __syncwarp();
-
-  const float* bm = b + static_cast<size_t>(m) * hd;
-  float* outr = out + row * hd;
-  for (int c = lane; c < hd; c += 32) {
-    const int k = c / dh;
-    float acc = 0.f;
-    for (int f = 0; f < f1; ++f) {
-      const float a = att_s[f * n_heads + k];
-      if (a != 0.f)
-        acc = fmaf(a, whm[static_cast<size_t>(src_s[f]) * hd + c], acc);
-    }
-    const float y = acc + bm[c];
-    outr[c] = y > 0.f ? y : expm1f(y);
-  }
+// the same with the register budget of one block an SM (pick_wide)
+template <int VEC, int BATCH>
+__global__ void __launch_bounds__(kThreads, 1)
+gat_attend_kernel_wide(const int* __restrict__ idx,
+                       const float* __restrict__ mask,
+                       const float* __restrict__ wh,
+                       const float* __restrict__ scores,
+                       const float* __restrict__ b, float* __restrict__ out,
+                       float* __restrict__ p_out, float* __restrict__ x_out,
+                       int n_src, int n_dst, int f1, int n_heads, int dh,
+                       int gf, int gh, int gb, int rows) {
+  attend_rows<VEC, BATCH>(idx, mask, wh, scores, b, out, p_out, x_out, n_src,
+                          n_dst, f1, n_heads, dh, gf, gh, gb, rows);
 }
 
 cudaError_t opt_in(const void* kernel, size_t smem) {
@@ -209,6 +473,99 @@ cudaError_t opt_in(const void* kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
+}
+
+int pow2_floor(int x) {
+  int p = 1;
+  while (p * 2 <= x) p *= 2;
+  return p;
+}
+
+template <int VEC>
+int launch(const float* h, const int* idx, const float* mask, const float* w,
+           const float* a_src, const float* a_dst, const float* b,
+           float* out, float* wh, float* scores, float* p_out, float* x_out,
+           int m, int n_src, int n_dst, int f1, int d, int n_heads, int dh,
+           cudaStream_t s) {
+  const int hd = n_heads * dh;
+  const int ncg = hd / VEC;
+
+  // (a): a lane group of lpr lanes a row pair; threads a block halved
+  // (down to one warp) while the grid would leave SMs idle
+  const int lpr = min(32, pow2_ceil(ncg));
+  int threads_a = kThreads;
+  while (threads_a > 32 &&
+         m * n_src / (threads_a / lpr * kRowsPerThread) < kTargetBlocks)
+    threads_a /= 2;
+  const int rows_a = threads_a / lpr * kRowsPerThread;
+  const size_t hp = (d + 3) / 4 * 4 + 4;
+  const size_t smem_w = (static_cast<size_t>(d) * hd + 3) / 4 * 4 *
+                        sizeof(float);
+  const size_t smem_a = smem_w + rows_a * hp * sizeof(float);
+
+  // (b): lane groups of gf * gh (phase A) and gb (phase B) lanes a row
+  const int gf = min(32, pow2_ceil(f1));
+  const int gh = min(pow2_floor(n_heads), 32 / gf);
+  const int gb = min(32, pow2_ceil(ncg));
+  const int rows_b = kThreads / max(gf * gh, gb);
+  const int batch = f1 <= 4 ? 4 : 16;
+  const size_t f1p = (f1 + batch - 1) / batch * batch;
+  const size_t smem_b = rows_b * (2 * static_cast<size_t>(f1) +
+                                  f1p * (1 + n_heads)) * sizeof(float);
+  if (smem_a > kMaxSmem || smem_b > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  using Project = void (*)(const float*, const float*, const float*,
+                           const float*, float*, float*, int, int, int, int,
+                           int, int);
+  using Attend = void (*)(const int*, const float*, const float*,
+                          const float*, const float*, float*, float*, float*,
+                          int, int, int, int, int, int, int, int, int);
+  // wh loads in flight a lane: one batch of 4 a row at the training
+  // fanout, batches of 16 past it (three at the eval fanout of 33)
+  const Attend attend_narrow = batch == 4 ? gat_attend_kernel<VEC, 4>
+                                          : gat_attend_kernel<VEC, 16>;
+  const Attend attend_wide = batch == 4 ? gat_attend_kernel_wide<VEC, 4>
+                                        : gat_attend_kernel_wide<VEC, 16>;
+  const void* kernels[4] = {
+      reinterpret_cast<const void*>(gat_project_kernel<VEC>),
+      reinterpret_cast<const void*>(gat_project_kernel_wide<VEC>),
+      reinterpret_cast<const void*>(attend_narrow),
+      reinterpret_cast<const void*>(attend_wide)};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t e = opt_in(kernels[i], i < 2 ? smem_a : smem_b);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+
+  const dim3 grid_a((n_src + rows_a - 1) / rows_a, m);
+  const Project project =
+      pick_wide<Project>(gat_project_kernel<VEC>, gat_project_kernel_wide<VEC>,
+                         grid_a.x * grid_a.y, threads_a, smem_a);
+  project<<<grid_a, threads_a, smem_a, s>>>(
+      h, w, a_src, a_dst, wh, scores, n_src, d, n_heads, dh, lpr, rows_a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  const dim3 grid_b((n_dst + rows_b - 1) / rows_b, m);
+  const Attend attend = pick_wide(attend_narrow, attend_wide,
+                                  grid_b.x * grid_b.y, kThreads, smem_b);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid_b;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_b;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, attend, idx, mask,
+                         static_cast<const float*>(wh),
+                         static_cast<const float*>(scores), b, out, p_out,
+                         x_out, n_src, n_dst, f1, n_heads, dh, gf, gh, gb,
+                         rows_b);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -234,31 +591,18 @@ extern "C" int gat_layer_launch(const float* h, const int* idx,
       n_heads <= 0 || dh <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t hd = static_cast<size_t>(n_heads) * dh;
-  const size_t smem_a =
-      (static_cast<size_t>(d) * hd + static_cast<size_t>(kProjRows) * d +
-       kProjRows * hd) * sizeof(float);
-  const size_t smem_b =
-      static_cast<size_t>(kAttWarps) * f1 * (1 + n_heads) * sizeof(float);
-  if (smem_a > kMaxSmem || smem_b > kMaxSmem)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = opt_in(reinterpret_cast<const void*>(gat_project_kernel), smem_a);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = opt_in(reinterpret_cast<const void*>(gat_attend_kernel), smem_b);
+  const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-
-  const dim3 grid_a((n_src + kProjRows - 1) / kProjRows, m);
-  gat_project_kernel<<<grid_a, kProjThreads, smem_a, s>>>(
-      h, w, a_src, a_dst, wh, scores, n_src, d, n_heads, dh);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-
-  const dim3 grid_b((n_dst + kAttWarps - 1) / kAttWarps, m);
-  gat_attend_kernel<<<grid_b, kAttThreads, smem_b, s>>>(
-      idx, mask, wh, scores, b, out, p_out, x_out, n_src, n_dst, f1, n_heads,
-      dh);
-  return static_cast<int>(cudaGetLastError());
+  // float4 columns need dh % 4 == 0 and 16-byte aligned vectors (a view
+  // with an odd storage offset takes the scalar instantiation)
+  const bool vec4 = dh % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(a_src) | reinterpret_cast<uintptr_t>(a_dst)
+        | reinterpret_cast<uintptr_t>(b) | reinterpret_cast<uintptr_t>(out)
+        | reinterpret_cast<uintptr_t>(wh)) & 15) == 0;
+  if (vec4)
+    return launch<4>(h, idx, mask, w, a_src, a_dst, b, out, wh, scores,
+                     p_out, x_out, m, n_src, n_dst, f1, d, n_heads, dh, s);
+  return launch<1>(h, idx, mask, w, a_src, a_dst, b, out, wh, scores, p_out,
+                   x_out, m, n_src, n_dst, f1, d, n_heads, dh, s);
 }

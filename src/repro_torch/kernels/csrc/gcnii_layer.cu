@@ -10,27 +10,50 @@
 // When `z_out` is not null the kernel also writes z, which the backward
 // needs (dW = beta z^T g'), so the backward never re-runs the forward.
 //
-// What bounds it on this card: at the serving shapes (M = 3, n_src = n_dst =
-// 2708, d = 64, F+1 = 33) the unique device-memory bytes are ~8.4 MB
-// (h, h0, idx, mask, out: ~2.5 us at 3.35 TB/s), the gather re-reads ~69 MB
-// of h rows through L2, and z @ W is 67 MFLOP. One launch is bound by the
-// latency of the dependent index -> row loads and by L2 bandwidth, not by
-// device memory or arithmetic.
+// What bounds it on this card: at the training shapes (M = 3, n_src <= 512,
+// n_dst <= 512, F+1 = 4, d = 64) a launch moves under 1 MB and does ~13
+// MFLOP (~0.3 us at 3.35 TB/s, ~0.2 us at 67 TFLOP/s fp32): it costs its
+// latency, the chains W -> product and idx -> h rows -> z -> product, so
+// tensor cores would buy nothing and cost the error budget. At the serving
+// shapes (n_src = n_dst = 2708, F+1 = 33) the unique bytes are ~8.4 MB
+// (~2.5 us), the gather re-reads ~69 MB of h rows through L2 and z @ W is
+// 67 MFLOP; the loads in flight set the time.
 //
 // Design. The TPU kernel turns the gather into a one-hot (128 x n_src)
 // scatter-matrix matmul and stages all of h and h0 in VMEM; at n_src = 2708
 // h alone is 693 KB per client, three times the 227 KB of shared memory a
 // block may use. Here the gather is direct: h and h0 stay in global memory
-// and are read through L2, one coalesced 4-byte-per-lane row segment per
-// fanout entry (lanes run across d, so any d works). A block owns ROWS
-// destination rows of one client (blockIdx.y = m); each warp gathers its
-// rows into a z tile in shared memory, the client's W is staged in shared
-// memory once per block, and the (ROWS x d)(d x d) product and epilogue run
-// from shared memory. Fanout entries with mask 0 are skipped: their term is
-// 0 * h, so for finite h the result is the same. Indices are clamped to
-// [0, n_src) so a bad index cannot fault (the JAX gather clamps as well).
-// fp32 FMA throughout, no TF32. Tensor cores for z @ W and asynchronous
-// copies of the index tiles are left for a later change.
+// and are read through L2. A block owns `rows` destination rows of one
+// client (blockIdx.y = m); blocks shrink to a warp while the grid would
+// leave SMs idle, so the small layers (n_dst 64 and 16) still spread.
+//  - W off the critical path: thread 0 hands the client's W (d x d, one
+//    contiguous block; 16 KB at d = 64, 64 KB at d = 128) to the copy engine
+//    with one cp.async.bulk on an mbarrier (cp.async 4-byte chunks when it is
+//    not 16-byte aligned), and the block waits on it only just before the
+//    product; the gather runs under the copy.
+//  - The gather: the block's idx and mask rows (one contiguous run) come in
+//    by cp.async once, and each entry's source row is resolved once into a
+//    shared table padded to whole batches. A lane group per row (VEC = 4
+//    columns a lane, float4 loads) then issues the h loads of a batch of up
+//    to 16 fanout entries, and h0[self], before the first add, with no
+//    branch or select between them (a branch per entry, from a masked skip
+//    or a select on a loaded index, split the batch into one dependent load
+//    at a time). A masked entry reads the row's self row, in flight anyway,
+//    with weight 0. z goes to a shared tile.
+//  - The product: each thread owns two rows x VEC columns, eight
+//    independent accumulators, each summed over k from 0 upward in one
+//    fmaf chain, with z and W read from shared memory kStage k-steps ahead.
+//  - Two register budgets (graph_common.cuh, pick_wide): the wide build
+//    keeps a whole batch of loads in flight and is taken where the grid
+//    fits on the card at once with it (training, small n_dst); the narrow
+//    one, eight blocks an SM, past that (the serving layers of 2708 rows).
+// Indices are clamped to [0, n_src) so a bad index cannot fault (the JAX
+// gather clamps as well).
+//
+// Precision: fp32 FMA throughout, no TF32. The masked sum runs over f
+// ascending from 0 and the product over k ascending, as in the PR 11/12
+// kernel; a masked entry's term is fmaf(0, h, s) = s exactly for finite h,
+// as the skip gave (s starts at +0 and is never -0).
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -39,88 +62,241 @@
 
 #include <cuda_runtime.h>
 
+#include "graph_common.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 2;
-constexpr int kRows = kWarps * kRowsPerWarp;  // destination rows per block
-constexpr int kThreads = kWarps * 32;
+using namespace graph_common;
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kMaxThreads = 128;
+constexpr int kStage = 8;            // k-steps of z @ W staged at once
+constexpr int kTargetBlocks = 132;   // an SM each, where the rows allow
+constexpr size_t kMaxSmem = 232448;  // 227 KB a block may opt into
+
+// A lane group of `gw` lanes gathers a row, lane lg the column groups lg,
+// lg + gw, ... (VEC columns each).
+template <int VEC, int BATCH>
+__device__ __forceinline__ void
+gcnii_rows(const float* __restrict__ h, const float* __restrict__ h0,
+           const int* __restrict__ idx,
+           const float* __restrict__ mask,
+           const float* __restrict__ w, const float* __restrict__ b,
+           float* __restrict__ out, float* __restrict__ z_out,
+           int n_src, int n_dst, int f1, int d, float alpha,
+           float beta, int gw, int rows) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t w_bar;
+  const int zp = (d + 3) / 4 * 4 + 4;  // padded z row: float4 reads,
+                                       // no bank conflict
+  float* w_s = smem;                         // (d, d) weights of client m
+  float* z_s = smem + (d * d + 3) / 4 * 4;  // (rows, zp), 16-byte aligned
+  int* idx_s = reinterpret_cast<int*>(z_s + rows * zp);  // (rows, f1)
+  float* mask_s = z_s + rows * zp + rows * f1;           // (rows, f1)
+  const int f1p = (f1 + BATCH - 1) / BATCH * BATCH;      // whole batches
+  int* src_s = reinterpret_cast<int*>(mask_s + rows * f1);  // (rows, f1p)
+  float* mv_s = mask_s + rows * f1 + rows * f1p;            // (rows, f1p)
+
+  const int m = blockIdx.y;
+  const int r0 = blockIdx.x * rows;
+  const int nrows = min(rows, n_dst - r0);
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const size_t row0 = static_cast<size_t>(m) * n_dst + r0;
+
+  // the index rows first: the gather waits on them, the product on W
+  copy_async(idx_s, idx + row0 * f1, nrows * f1, tid, nthreads);
+  copy_async(mask_s, mask + row0 * f1, nrows * f1, tid, nthreads);
+  BulkLoad w_load{&w_bar, false};
+  w_load.start(w_s, w + static_cast<size_t>(m) * d * d, d * d, tid,
+               nthreads);
+  cp_async_wait_all();
+  __syncthreads();
+  // each entry's source row, resolved once: a masked entry (and the padding
+  // up to whole batches) reads the row's self row, whose h is in flight
+  // anyway, with weight 0
+  for (int i = tid; i < nrows * f1p; i += nthreads) {
+    const int r = i / f1p;
+    const int f = i - r * f1p;
+    const float mv = f < f1 ? mask_s[r * f1 + f] : 0.f;
+    src_s[i] = min(max(idx_s[r * f1 + (mv != 0.f ? f : 0)], 0), n_src - 1);
+    mv_s[i] = mv;
+  }
+  __syncthreads();
+
+  // gather: masked mean over the fanout plus the initial residual
+  const float* hm = h + static_cast<size_t>(m) * n_src * d;
+  const float* h0m = h0 + static_cast<size_t>(m) * n_src * d;
+  const int ncg = d / VEC;
+  const int sw = __ffs(gw) - 1;  // gw is a power of two
+  if (const int rr = tid >> sw; rr < nrows) {
+    const int* sr = src_s + rr * f1p;
+    const float* mr = mv_s + rr * f1p;
+    const int self = min(max(idx_s[rr * f1], 0), n_src - 1);
+    float msum = 0.f;
+    for (int f = 0; f < f1; ++f) msum += mr[f];
+    const float denom = fmaxf(msum, 1.f);
+    for (int cg = tid & (gw - 1); cg < ncg; cg += gw) {
+      const int c0 = cg * VEC;
+      float r0v[VEC];
+      load_vec<VEC>(h0m + static_cast<size_t>(self) * d + c0, r0v);
+      float s[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) s[i] = 0.f;
+      for (int fb = 0; fb < f1; fb += BATCH) {
+        float mv[BATCH];
+        float v[BATCH][VEC];
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+          mv[u] = mr[fb + u];
+          load_vec<VEC>(hm + static_cast<size_t>(sr[fb + u]) * d + c0, v[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) s[i] = fmaf(mv[u], v[u][i], s[i]);
+        }
+      }
+      float z[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        z[i] = (1.f - alpha) * (s[i] / denom) + alpha * r0v[i];
+      store_vec<VEC>(z_s + rr * zp + c0, z);
+      if (z_out != nullptr) store_vec<VEC>(z_out + (row0 + rr) * d + c0, z);
+    }
+  }
+  w_load.wait();
+  __syncthreads();
+
+  // identity map + matmul + bias + relu from shared memory: a thread owns
+  // rows (2p, 2p + 1) x columns c0 .. c0 + VEC
+  const float* bm = b + static_cast<size_t>(m) * d;
+  const int npairs = (nrows + 1) / 2;
+  for (int it = tid; it < npairs * ncg; it += nthreads) {
+    const int ra = 2 * (it / ncg);
+    const int rb = min(ra + 1, nrows - 1);
+    const int c0 = (it % ncg) * VEC;
+    const float* za = z_s + ra * zp;
+    const float* zb = z_s + rb * zp;
+    float bv[VEC];
+    load_vec<VEC>(bm + c0, bv);  // in flight under the product
+    float acc_a[VEC], acc_b[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc_a[i] = acc_b[i] = 0.f;
+    // kStage k-steps' operands are read from shared memory before their
+    // FMAs, so the reads overlap; each sum still runs k = 0, 1, ...
+    int k0 = 0;
+    for (; k0 + kStage <= d; k0 += kStage) {
+      float wv[kStage][VEC], xa[kStage], xb[kStage];
+      load_run<kStage>(za + k0, xa);
+      load_run<kStage>(zb + k0, xb);
+#pragma unroll
+      for (int u = 0; u < kStage; ++u)
+        load_vec<VEC>(w_s + (k0 + u) * d + c0, wv[u]);
+#pragma unroll
+      for (int u = 0; u < kStage; ++u) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          acc_a[i] = fmaf(xa[u], wv[u][i], acc_a[i]);
+          acc_b[i] = fmaf(xb[u], wv[u][i], acc_b[i]);
+        }
+      }
+    }
+    for (int k = k0; k < d; ++k) {
+      float wv[VEC];
+      load_vec<VEC>(w_s + k * d + c0, wv);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        acc_a[i] = fmaf(za[k], wv[i], acc_a[i]);
+        acc_b[i] = fmaf(zb[k], wv[i], acc_b[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      acc_a[i] = fmaxf((1.f - beta) * za[c0 + i] + beta * acc_a[i] + bv[i],
+                       0.f);
+      acc_b[i] = fmaxf((1.f - beta) * zb[c0 + i] + beta * acc_b[i] + bv[i],
+                       0.f);
+    }
+    store_vec<VEC>(out + (row0 + ra) * d + c0, acc_a);
+    if (ra + 1 < nrows) store_vec<VEC>(out + (row0 + ra + 1) * d + c0, acc_b);
+  }
+}
+
+template <int VEC, int BATCH>
+__global__ void __launch_bounds__(kMaxThreads, 8)
 gcnii_layer_kernel(const float* __restrict__ h, const float* __restrict__ h0,
                    const int* __restrict__ idx,
                    const float* __restrict__ mask,
                    const float* __restrict__ w, const float* __restrict__ b,
                    float* __restrict__ out, float* __restrict__ z_out,
                    int n_src, int n_dst, int f1, int d, float alpha,
-                   float beta) {
-  extern __shared__ float smem[];
-  float* w_s = smem;          // (d, d) weights of client m
-  float* z_s = smem + d * d;  // (kRows, d) z rows of this block
+                   float beta, int gw, int rows) {
+  gcnii_rows<VEC, BATCH>(h, h0, idx, mask, w, b, out, z_out, n_src, n_dst,
+                         f1, d, alpha, beta, gw, rows);
+}
 
-  const int m = blockIdx.y;
-  const int row0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+// the same with the register budget of one block an SM (pick_wide)
+template <int VEC, int BATCH>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+gcnii_layer_kernel_wide(const float* __restrict__ h,
+                        const float* __restrict__ h0,
+                        const int* __restrict__ idx,
+                        const float* __restrict__ mask,
+                        const float* __restrict__ w,
+                        const float* __restrict__ b,
+                        float* __restrict__ out, float* __restrict__ z_out,
+                        int n_src, int n_dst, int f1, int d, float alpha,
+                        float beta, int gw, int rows) {
+  gcnii_rows<VEC, BATCH>(h, h0, idx, mask, w, b, out, z_out, n_src, n_dst,
+                         f1, d, alpha, beta, gw, rows);
+}
 
-  const float* hm = h + static_cast<size_t>(m) * n_src * d;
-  const float* h0m = h0 + static_cast<size_t>(m) * n_src * d;
-  const int* idxm = idx + static_cast<size_t>(m) * n_dst * f1;
-  const float* maskm = mask + static_cast<size_t>(m) * n_dst * f1;
-  const float* wm = w + static_cast<size_t>(m) * d * d;
-  const float* bm = b + static_cast<size_t>(m) * d;
-  float* outm = out + static_cast<size_t>(m) * n_dst * d;
-  float* zm = z_out == nullptr ? nullptr
-                               : z_out + static_cast<size_t>(m) * n_dst * d;
-
-  for (int i = threadIdx.x; i < d * d; i += kThreads) w_s[i] = wm[i];
-
-  // gather: masked mean over the fanout plus the initial residual
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int lr = warp * kRowsPerWarp + rr;
-    const int r = row0 + lr;
-    float* zr = z_s + lr * d;
-    if (r >= n_dst) {  // ragged last tile: never stored
-      for (int c = lane; c < d; c += 32) zr[c] = 0.f;
-      continue;
-    }
-    const int* ir = idxm + static_cast<size_t>(r) * f1;
-    const float* mr = maskm + static_cast<size_t>(r) * f1;
-    float msum = 0.f;
-    for (int f = 0; f < f1; ++f) msum += mr[f];
-    const float denom = fmaxf(msum, 1.f);
-    const int self = min(max(ir[0], 0), n_src - 1);
-    for (int c = lane; c < d; c += 32) {
-      float s = 0.f;
-#pragma unroll 4
-      for (int f = 0; f < f1; ++f) {
-        const float mv = mr[f];
-        if (mv != 0.f) {
-          const int src = min(max(ir[f], 0), n_src - 1);
-          s += mv * hm[static_cast<size_t>(src) * d + c];
-        }
-      }
-      const float z = (1.f - alpha) * (s / denom)
-                      + alpha * h0m[static_cast<size_t>(self) * d + c];
-      zr[c] = z;
-      if (zm != nullptr) zm[static_cast<size_t>(r) * d + c] = z;
-    }
-  }
-  __syncthreads();
-
-  // identity map + matmul + bias + relu from shared memory
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int lr = warp * kRowsPerWarp + rr;
-    const int r = row0 + lr;
-    if (r >= n_dst) continue;
-    const float* zr = z_s + lr * d;
-    for (int c = lane; c < d; c += 32) {
-      float acc = 0.f;
-      for (int k = 0; k < d; ++k) acc = fmaf(zr[k], w_s[k * d + c], acc);
-      const float v = (1.f - beta) * zr[c] + beta * acc + bm[c];
-      outm[static_cast<size_t>(r) * d + c] = fmaxf(v, 0.f);
+template <int VEC>
+int launch(const float* h, const float* h0, const int* idx, const float* mask,
+           const float* w, const float* b, float* out, float* z_out, int m,
+           int n_src, int n_dst, int f1, int d, float alpha, float beta,
+           cudaStream_t s) {
+  const int gw = min(32, pow2_ceil(d / VEC));
+  const size_t zp = (d + 3) / 4 * 4 + 4;
+  const size_t smem_w = (static_cast<size_t>(d) * d + 3) / 4 * 4 *
+                        sizeof(float);
+  const int batch = f1 <= 4 ? 4 : 16;
+  const size_t f1p = (f1 + batch - 1) / batch * batch;
+  const size_t smem_row = (zp + 2 * static_cast<size_t>(f1) + 2 * f1p) *
+                          sizeof(float);
+  // threads a block: halved (down to one warp) while the grid would leave
+  // SMs idle; a lane group gathers one row
+  const int total = m * n_dst;
+  int threads = kMaxThreads;
+  while (threads > 32 && total / (threads / gw) < kTargetBlocks) threads /= 2;
+  const int rows = threads / gw;
+  const size_t smem = smem_w + rows * smem_row;
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  // h loads in flight a lane: one batch of 4 a row at the training fanout,
+  // batches of 16 past it (three at the serving fanout of 33)
+  using Kernel = void (*)(const float*, const float*, const int*,
+                          const float*, const float*, const float*, float*,
+                          float*, int, int, int, int, float, float, int, int);
+  const Kernel narrow = batch == 4 ? gcnii_layer_kernel<VEC, 4>
+                                   : gcnii_layer_kernel<VEC, 16>;
+  const Kernel wide = batch == 4 ? gcnii_layer_kernel_wide<VEC, 4>
+                                 : gcnii_layer_kernel_wide<VEC, 16>;
+  if (smem > 48 * 1024) {
+    const Kernel both[2] = {narrow, wide};
+    for (const Kernel k : both) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
     }
   }
+  const dim3 grid((n_dst + rows - 1) / rows, m);
+  const Kernel kernel =
+      pick_wide(narrow, wide, grid.x * grid.y, threads, smem);
+  kernel<<<grid, threads, smem, s>>>(
+      h, h0, idx, mask, w, b, out, z_out, n_src, n_dst, f1, d, alpha, beta,
+      gw, rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -143,17 +319,16 @@ extern "C" int gcnii_layer_launch(const float* h, const float* h0,
   }
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const size_t smem = (static_cast<size_t>(d) * d
-                       + static_cast<size_t>(kRows) * d) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gcnii_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((n_dst + kRows - 1) / kRows, m);
-  gcnii_layer_kernel<<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      h, h0, idx, mask, w, b, out, z_out, n_src, n_dst, f1, d, alpha, beta);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // float4 columns need d % 4 == 0 and 16-byte aligned rows (a view with an
+  // odd storage offset takes the scalar instantiation)
+  const bool vec4 = d % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(h0) |
+        reinterpret_cast<uintptr_t>(b) | reinterpret_cast<uintptr_t>(out) |
+        reinterpret_cast<uintptr_t>(z_out)) & 15) == 0;
+  if (vec4)
+    return launch<4>(h, h0, idx, mask, w, b, out, z_out, m, n_src, n_dst, f1,
+                     d, alpha, beta, s);
+  return launch<1>(h, h0, idx, mask, w, b, out, z_out, m, n_src, n_dst, f1, d,
+                   alpha, beta, s);
 }

@@ -27,6 +27,14 @@ GCNII_CASES = [
     (2, 80, 1, 6, 24, "plain", 0.3, 0.125),       # n_dst = 1, d = 24
     (3, 90, 77, 9, 24, "ragged", 0.2, 0.5),       # zero rows, mask[:, 0] = 0
     (3, 2708, 40, 33, 64, "plain", 0.1, 0.5 / 3),  # cora's source set, W = 33
+    # the CUDA kernel's edges: self only, four whole batches of 16 entries,
+    # W of 64 KB (the shared-memory opt-in), fewer rows than a block owns
+    (2, 40, 12, 1, 16, "plain", 0.1, 0.5),        # F+1 = 1
+    (2, 80, 10, 64, 16, "ragged", 0.2, 0.25),     # F+1 = 64
+    (2, 60, 20, 5, 128, "plain", 0.1, 0.5),       # d = 128
+    (3, 30, 3, 4, 64, "plain", 0.1, 0.125),       # n_dst = 3
+    (2, 40, 15, 5, 7, "plain", 0.1, 0.5),         # d = 7: scalar columns,
+                                                  # W not 16-byte sized
 ]
 
 
@@ -76,6 +84,15 @@ GAT_CASES = [
     (2, 200, 129, 9, 48, 1, 64, "plain"),    # one head, dh = 64, wide fanout
     (3, 90, 77, 4, 64, 2, 32, "masked"),     # all-masked rows, mask[:, 0] = 0
     (3, 120, 40, 33, 64, 2, 32, "masked"),   # the eval fanout, W = 33 > 32
+    # the CUDA kernel's lane-group edges: one lane a row (self only), a
+    # 32-lane group over two batches, two entries a lane with a narrow head,
+    # fewer rows than a block owns
+    (2, 40, 12, 1, 16, 2, 8, "plain"),       # F+1 = 1
+    (2, 60, 20, 17, 16, 2, 8, "masked"),     # F+1 = 17
+    (2, 80, 10, 64, 16, 1, 8, "plain"),      # F+1 = 64, H = 1, dh = 8
+    (2, 30, 3, 4, 64, 2, 32, "plain"),       # n_dst = 3
+    (2, 50, 20, 5, 7, 3, 6, "plain"),        # dh = 6: scalar columns, W of
+                                             # 7 x 18 not 16-byte sized
 ]
 
 

@@ -88,6 +88,16 @@ def test_build_names_library_by_source_hash(tmp_path, monkeypatch):
     assert build.library_path("gcnii_layer") != path
 
 
+def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
+    for name in ("gcnii_layer.cu", "graph_common.cuh"):
+        (tmp_path / name).write_text((build.CSRC / name).read_text())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    path = build.library_path("gcnii_layer")
+    header = tmp_path / "graph_common.cuh"
+    header.write_text(header.read_text() + "\n// edit\n")
+    assert build.library_path("gcnii_layer") != path
+
+
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
