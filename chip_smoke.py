@@ -11,21 +11,29 @@ Phases, each printing its own lines:
             the sources in this checkout (``src/repro_torch/kernels/csrc``,
             five sources, one nvcc each, all started together) and prints
             the build seconds and ptxas' register/shared-memory report;
-            a GAT or GCNII kernel that spills registers fails the run;
+            a graph kernel (GAT, GCNII, GCN, CSR) that spills registers
+            fails the run;
 3. kernels  holds each kernel (GCNII, GCN, GAT, CSR) against its plain
             PyTorch version on the card at the serving, training and eval
-            shapes and on ragged and masked shapes (GCNII and GAT also at
-            F+1 = 1 and 64, GAT at 17 and 32, a narrow head, fewer rows than
-            a block, GCNII at d = 128 and n_dst = 16, both with scalar
-            columns and a W that is not 16-byte sized; for CSR: the
-            million-node serving shape, a planned ragged CSR with weights
-            summing below 1, an empty graph, n_src = 16384, a hub tile and
-            shuffled slabs), max abs error <= 1e-5 (fp32, sums in another
-            order), and times both with CUDA events (median of 30 after
-            warm-up) beside the least time the card could take; then each
-            op's gradients on the card against the CPU's at rtol = atol =
-            1e-4 (cuBLAS sums the backward's products in another order) and
-            the backward's device time; the flash-attention kernel against
+            shapes and on ragged and masked shapes (GCNII, GCN and GAT also
+            at F+1 = 1 and 64, GAT at 17 and 32, a narrow head, fewer rows
+            than a block, GCNII and GCN at d = 128 and n_dst = 16, all three
+            with scalar columns and a W that is not 16-byte sized, GCN at
+            the million-node training widths; for CSR: the million-node
+            serving shape (also with its tiles shuffled, or its odd
+            tiles), a planned ragged CSR with weights summing below 1, an
+            empty graph, n_src = 16384, a hub tile, shuffled slabs, tiles
+            of mixed order, a shuffled tile mostly of pads, two hub rows in
+            one tile, ELL rows wholly masked, a slab past the kernel's
+            8192-slot window, in row order and not, and a grid past what
+            the card holds at once (the narrow build), each launched twice
+            and held bitwise equal), max abs error <= 1e-5 (fp32,
+            sums in another order), and times both with CUDA events
+            (median of 30 after warm-up) beside the least time the card
+            could take; then each op's gradients on the card against the
+            CPU's at rtol = atol = 1e-4 (cuBLAS sums the backward's
+            products in another order) and the backward's device time;
+            the flash-attention kernel against
             its plain version on the reference's cases (four shapes causal
             and not, windows 32 / 128 / 511, dh 80 and 128) and on dh 40
             and 96, S and T that are multiples of no tile, and slices of a
@@ -144,8 +152,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 REPS = 30
 # sources whose kernels must not spill registers (ptxas -v, checked at
-# build): the GAT and GCNII kernels, redesigned for latency
-NO_SPILL_SOURCES = ("gat_layer", "gcnii_layer")
+# build): the graph kernels, redesigned for latency
+NO_SPILL_SOURCES = ("gat_layer", "gcnii_layer", "graph_agg", "graph_agg_csr")
 BF16_FLOP_PER_S = 989e12          # dense bf16 on the tensor cores (700 W)
 # flash kernel vs its plain version. fp32: the reference's flash tolerance
 # (tests/test_kernels.py), sums in another order. bf16, every case: kernel
@@ -465,23 +473,34 @@ def _gcn_inputs(torch, gen, m, n_src, n_dst, f1, d, d_out, case):
 
 def phase_kernels_gcn(torch, graph_agg):
     """GCN kernel vs plain at the training, eval, concat and ragged
-    shapes, forward with and without the saved mean."""
+    shapes, the kernel's batch and block edges and the million-node
+    training widths, forward with and without the saved mean."""
     gen = torch.Generator().manual_seed(SEED + 1)
-    m = 3
     cases = [
-        # label, n_src, n_dst, F+1, d, d_out, case
-        ("train l0", 512, 512, 4, 64, 64, ""),
-        ("train l1", 512, 512, 4, 64, 64, ""),
-        ("train l2", 512, 64, 4, 64, 64, ""),
-        ("train l3", 64, 16, 4, 64, 64, ""),
-        ("eval", 2708, 2708, 33, 64, 64, ""),
-        ("concat d=192", 512, 512, 4, 192, 64, ""),
-        ("n_dst=1", 512, 1, 4, 64, 64, ""),
-        ("n_dst=1001 (ragged tile)", 2708, 1001, 33, 64, 64, ""),
-        ("zero-mask rows", 500, 300, 4, 64, 64, "zero-mask rows"),
+        # label, M, n_src, n_dst, F+1, d, d_out, case
+        ("train l0", 3, 512, 512, 4, 64, 64, ""),
+        ("train l1", 3, 512, 512, 4, 64, 64, ""),
+        ("train l2", 3, 512, 64, 4, 64, 64, ""),
+        ("train l3", 3, 64, 16, 4, 64, 64, ""),
+        ("eval", 3, 2708, 2708, 33, 64, 64, ""),
+        ("concat d=192", 3, 512, 512, 4, 192, 64, ""),
+        ("n_dst=1", 3, 512, 1, 4, 64, 64, ""),
+        ("n_dst=1001 (ragged tile)", 3, 2708, 1001, 33, 64, 64, ""),
+        ("zero-mask rows", 3, 500, 300, 4, 64, 64, "zero-mask rows"),
+        # the kernel's batch and block edges: self only, four whole batches,
+        # scalar columns with a W that is not 16-byte sized, W of 64 KB, the
+        # fewest rows; the million-node preset's training widths
+        ("F+1=1 (self only)", 3, 500, 300, 1, 64, 64, ""),
+        ("F+1=64", 3, 500, 300, 64, 64, 64, ""),
+        ("d=7 (scalar columns, W not 16-byte sized)", 3, 100, 50, 5, 7, 7,
+         ""),
+        ("d=128 (W 64 KB)", 3, 500, 300, 33, 128, 128, ""),
+        ("n_dst=16", 3, 64, 16, 4, 64, 64, ""),
+        ("powerlaw l0", 2, 256, 64, 4, 32, 32, ""),
+        ("powerlaw l1", 2, 64, 16, 4, 32, 16, ""),
     ]
     worst = 0.0
-    for label, n_src, n_dst, f1, d, d_out, case in cases:
+    for label, m, n_src, n_dst, f1, d, d_out, case in cases:
         args = _gcn_inputs(torch, gen, m, n_src, n_dst, f1, d, d_out, case)
         got, mean = graph_agg.graph_agg_cuda(*args, save=True)
         plain_only = graph_agg.graph_agg_cuda(*args)
@@ -617,16 +636,48 @@ CSR_LIBRARY_NOTE = ("no single PyTorch call computes a weighted segment-mean "
                     "sparse_mm_two_calls_ms and used nowhere in the port")
 
 
+def _tile_perm(np, rng, n_tiles, slab, order):
+    """Slot positions of a slab layout with the slots of every tile permuted
+    (order "shuffled": pads among the live slots), of every odd tile only
+    ("mixed") or none ("planned")."""
+    perms = [rng.permutation(slab) for _ in range(n_tiles)]
+    return np.concatenate([
+        t * slab + (p if order == "shuffled" or (order == "mixed" and t % 2)
+                    else np.arange(slab))
+        for t, p in enumerate(perms)])
+
+
+def _ell_inputs(torch, np, graph_agg, gen, m, n_src, n_dst, f1, case, order):
+    """Random ELL tables (every row's first slot live, rows wholly masked
+    for case "zero-mask rows") through ell_to_slabs, each client's slots
+    then in ``order`` (see _tile_perm), with h and W (d = d_out = 32), on
+    the card; and the (client, row) pairs with no live slot."""
+    h, idx, mask, w = _gcn_inputs(torch, gen, m, n_src, n_dst, f1, 32, 32,
+                                  case)
+    slabs = graph_agg.ell_to_slabs(idx, mask)[:3]
+    if order != "planned":
+        n_tiles = -(-n_dst // 128)
+        rng = np.random.default_rng(n_dst * m + f1)
+        perm = torch.from_numpy(np.stack([
+            _tile_perm(np, rng, n_tiles, slabs[0].shape[1] // n_tiles, order)
+            for _ in range(m)])).cuda()
+        slabs = [torch.gather(x, 1, perm) for x in slabs]
+    return [h, *slabs, w], (mask.sum(dim=2) == 0).nonzero()
+
+
 def _csr_inputs(torch, np, csr_plan, seed, n_dst, n_src, d, d_out, p_zero,
-                hub, weights, shuffle):
+                hub, weights, order):
     """One client's planned slab layout of a ragged CSR (weights "none",
-    "low": 0.05-0.3, so most rows sum below 1, or "rand": 0.25-1.25; slots
-    permuted within each tile with ``shuffle``), with h and W, on the card."""
+    "low": 0.05-0.3, so most rows sum below 1, or "rand": 0.25-1.25; order
+    "planned", "shuffled": slots permuted within every tile, pads among the
+    live slots, or "mixed": within every odd tile only), with h and W, on
+    the card. ``hub``: row 0's degree, or a tuple of rows 0 and 3's."""
     rng = np.random.default_rng(seed)
     deg = rng.integers(1, 7, size=n_dst)
     deg[rng.random(n_dst) < p_zero] = 0
-    if hub:
-        deg[0] = hub
+    for row, n in zip((0, 3), hub if isinstance(hub, tuple) else (hub,)):
+        if n:
+            deg[row] = n
     indptr = np.zeros(n_dst + 1, np.int32)
     indptr[1:] = np.cumsum(deg)
     indices = rng.integers(0, n_src, size=int(indptr[-1])).astype(np.int32)
@@ -634,11 +685,10 @@ def _csr_inputs(torch, np, csr_plan, seed, n_dst, n_src, d, d_out, p_zero,
               "rand": (0.25, 1.25)}[weights]
     ew = (lo + (hi - lo) * rng.random(len(indices))).astype(np.float32)
     slabs = csr_plan.plan_csr_slabs(indptr, indices, ew)[:3]
-    if shuffle:
+    if order != "planned":
         n_tiles = max(1, -(-n_dst // 128))
-        slab = slabs[0].shape[0] // n_tiles
-        perm = np.concatenate([t * slab + rng.permutation(slab)
-                               for t in range(n_tiles)])
+        perm = _tile_perm(np, rng, n_tiles, slabs[0].shape[0] // n_tiles,
+                          order)
         slabs = [x[perm] for x in slabs]
     h = torch.from_numpy(rng.normal(size=(1, n_src, d)).astype(np.float32))
     w = torch.from_numpy((rng.normal(size=(1, d, d_out)) / d ** 0.5)
@@ -651,41 +701,78 @@ def _csr_inputs(torch, np, csr_plan, seed, n_dst, n_src, d, d_out, p_zero,
 
 def phase_kernels_csr(torch, np, graph_agg, csr_plan):
     """CSR kernel vs plain on the million-node serving shape (random ELL
-    tables through ell_to_slabs), planned layouts of ragged CSRs, an empty
-    graph, n_src = 16384, a hub tile and shuffled slabs; the saved mean
-    too, save=False bitwise equal, zero-degree rows exactly 0."""
+    tables through ell_to_slabs; also with its tiles shuffled, or its odd
+    tiles), planned layouts of ragged CSRs, an empty graph, n_src = 16384, a
+    hub tile, shuffled slabs (pads among the live slots), tiles of mixed
+    order, two hub rows in one tile, an ELL slab with whole rows masked, a
+    slab past the kernel's shared-memory window and a grid past what the
+    card holds at once (the narrow build); the saved mean too, save=False
+    bitwise equal, two launches bitwise equal, rows with no (live) edge
+    exactly 0."""
     gen = torch.Generator().manual_seed(SEED + 5)
     cases = [
-        # label, M, n_src, n_dst, F+1 (ELL) or (p_zero, hub, weights,
-        # shuffle) (planned CSR)
-        ("serve l0 (ELL)", 2, 67600, 1040, 33),
-        ("n_src=16384 (ELL)", 2, 16384, 300, 33),
-        ("ragged, weights below 1", 1, 5000, 1001, (0.3, 0, "low", False)),
-        ("ragged, shuffled slabs", 1, 5000, 1001, (0.3, 0, "rand", True)),
-        ("empty graph", 1, 100, 130, (1.0, 0, "none", False)),
+        # label, M, n_src, n_dst, (F+1, mask case, order) (ELL) or (p_zero,
+        # hub, weights, order) (planned CSR)
+        ("serve l0 (ELL)", 2, 67600, 1040, (33, "", "planned")),
+        # 18 tile slabs, 144 blocks of 16 rows: each warp sorts four rows
+        ("serve l0 (ELL) shuffled", 2, 67600, 1040, (33, "", "shuffled")),
+        ("serve l0 (ELL) mixed order", 2, 67600, 1040, (33, "", "mixed")),
+        ("n_src=16384 (ELL)", 2, 16384, 300, (33, "", "planned")),
+        ("ragged, weights below 1", 1, 5000, 1001,
+         (0.3, 0, "low", "planned")),
+        ("ragged, shuffled slabs", 1, 5000, 1001,
+         (0.3, 0, "rand", "shuffled")),
+        ("empty graph", 1, 100, 130, (1.0, 0, "none", "planned")),
         ("hub tile, slab > 128*33", 1, 67600, 200,
-         (0.2, 6000, "rand", False)),
-        ("hub tile shuffled", 1, 67600, 200, (0.2, 6000, "rand", True)),
+         (0.2, 6000, "rand", "planned")),
+        ("hub tile shuffled", 1, 67600, 200,
+         (0.2, 6000, "rand", "shuffled")),
+        # tiles in row order beside shuffled ones; a shuffled tile that is
+        # mostly pads; two hub rows in one block's rows; ELL rows whose
+        # every slot has weight 0
+        ("mixed order (odd tiles shuffled)", 1, 5000, 1001,
+         (0.3, 0, "rand", "mixed")),
+        ("shuffled, pads among live slots", 1, 5000, 300,
+         (0.7, 0, "rand", "shuffled")),
+        ("two hub rows in one tile", 1, 67600, 200,
+         (0.2, (3000, 2000), "rand", "planned")),
+        ("ELL, whole rows masked", 2, 16384, 300,
+         (33, "zero-mask rows", "planned")),
+        # a slab past the kernel's 8192-slot shared-memory window
+        ("hub past one window (slab > 8192)", 1, 67600, 200,
+         (0.2, 9000, "rand", "planned")),
+        ("hub past one window shuffled", 1, 67600, 200,
+         (0.2, 9000, "rand", "shuffled")),
+        # 2 x 136 tiles x 8 blocks = 2176 blocks, more than the card holds
+        # at once (16 blocks of 128 threads an SM x 132 SMs = 2112), so the
+        # launch takes the narrow build
+        ("narrow build (grid 2176 blocks)", 2, 20000, 17408,
+         (4, "", "planned")),
+        ("narrow build, mixed order", 2, 20000, 17408, (4, "", "mixed")),
     ]
     worst = 0.0
     for i, (label, m, n_src, n_dst, shape) in enumerate(cases):
         indptr = None
-        if isinstance(shape, int):
-            h, idx, mask, w = _gcn_inputs(torch, gen, m, n_src, n_dst, shape,
-                                          32, 32, "")
-            idx_s, seg_s, ew_s, _ = graph_agg.ell_to_slabs(idx, mask)
-            args = [h, idx_s, seg_s, ew_s, w]
+        if len(shape) == 3:
+            args, zero = _ell_inputs(torch, np, graph_agg, gen, m, n_src,
+                                     n_dst, *shape)
         else:
             args, indptr, _ = _csr_inputs(torch, np, csr_plan, SEED + 10 + i,
                                           n_dst, n_src, 32, 32, *shape)
+            zero = torch.from_numpy(np.flatnonzero(np.diff(indptr) == 0))
+            zero = torch.stack([torch.zeros_like(zero), zero], 1).cuda()
         got, mean = graph_agg.graph_agg_csr_cuda(*args, n_dst, save=True)
         out_only = graph_agg.graph_agg_csr_cuda(*args, n_dst)
+        again = graph_agg.graph_agg_csr_cuda(*args, n_dst)
         torch.cuda.synchronize()
         want, want_mean = graph_agg.graph_agg_csr_plain(*args, n_dst,
                                                         save=True)
         if not (torch.isfinite(got).all() and torch.equal(got, out_only)):
             raise AssertionError(f"graph_agg_csr_cuda at {label}: "
                                  "non-finite, or save=True changed the output")
+        if not torch.equal(again, out_only):
+            raise AssertionError(f"graph_agg_csr_cuda at {label}: two "
+                                 "launches on the same inputs differ")
         err = max(float((got - want).abs().max()),
                   float((mean - want_mean).abs().max()))
         worst = max(worst, err)
@@ -693,11 +780,9 @@ def phase_kernels_csr(torch, np, graph_agg, csr_plan):
             raise AssertionError(
                 f"graph_agg_csr_cuda vs plain at {label}: max abs err "
                 f"{err:.3e} > {KERNEL_ATOL:.0e}")
-        if indptr is not None:
-            zero = torch.from_numpy(np.flatnonzero(np.diff(indptr) == 0))
-            if not bool((got[0, zero.cuda()] == 0).all()):
-                raise AssertionError(f"graph_agg_csr_cuda at {label}: a row "
-                                     "with no edges is not exactly 0")
+        if not bool((got[zero[:, 0], zero[:, 1]] == 0).all()):
+            raise AssertionError(f"graph_agg_csr_cuda at {label}: a row "
+                                 "with no live edge is not exactly 0")
         kernel = lambda: graph_agg.graph_agg_csr_cuda(*args, n_dst)
         k_ms = _time_ms(torch, kernel)
         launch_ms = _time_ms(torch, kernel, preload=False)
@@ -787,7 +872,7 @@ def phase_grads_csr(torch, np, ops, csr_plan):
     time."""
     args, indptr, indices = _csr_inputs(torch, np, csr_plan, SEED + 20,
                                         1040, 5000, 32, 32, 0.3, 0, "rand",
-                                        False)
+                                        "planned")
     rng = np.random.default_rng(SEED + 21)
     ew = (0.25 + rng.random(len(indices))).astype(np.float32)
     ew[indptr[np.flatnonzero(np.diff(indptr) == 1)]] = 1.0

@@ -31,22 +31,27 @@
 //    with one cp.async.bulk on an mbarrier (cp.async 4-byte chunks when it is
 //    not 16-byte aligned), and the block waits on it only just before the
 //    product; the gather runs under the copy.
-//  - The gather: the block's idx and mask rows (one contiguous run) come in
-//    by cp.async once, and each entry's source row is resolved once into a
-//    shared table padded to whole batches. A lane group per row (VEC = 4
-//    columns a lane, float4 loads) then issues the h loads of a batch of up
-//    to 16 fanout entries, and h0[self], before the first add, with no
-//    branch or select between them (a branch per entry, from a masked skip
-//    or a select on a loaded index, split the batch into one dependent load
-//    at a time). A masked entry reads the row's self row, in flight anyway,
-//    with weight 0. z goes to a shared tile.
-//  - The product: each thread owns two rows x VEC columns, eight
-//    independent accumulators, each summed over k from 0 upward in one
-//    fmaf chain, with z and W read from shared memory kStage k-steps ahead.
+//  - The gather (graph_common.cuh Fanout, shared with the GCN kernel): the
+//    block's idx and mask rows (one contiguous run) and the client's bias
+//    come in by cp.async once, and each entry's source row is resolved
+//    once into a shared table padded to whole batches. A lane group per
+//    row (VEC = 4 columns a lane, float4 loads) then issues the h loads of
+//    a batch of up to 16 fanout entries, and h0[self], before the first
+//    add, with no branch or select between them (a branch per entry, from
+//    a masked skip or a select on a loaded index, split the batch into one
+//    dependent load at a time). A masked entry reads the row's self row, in
+//    flight anyway, with weight 0. z goes to a shared tile.
+//  - The product (graph_common.cuh matmul_rows, with the identity map, bias
+//    and relu as its epilogue): each thread owns two rows x VEC columns,
+//    eight independent accumulators, each summed over k from 0 upward in
+//    one fmaf chain, with z and W read from shared memory kStage k-steps
+//    ahead.
 //  - Two register budgets (graph_common.cuh, pick_wide): the wide build
 //    keeps a whole batch of loads in flight and is taken where the grid
 //    fits on the card at once with it (training, small n_dst); the narrow
 //    one, eight blocks an SM, past that (the serving layers of 2708 rows).
+//    Rows a block shrink further where a long fanout would outgrow a
+//    block's shared memory.
 // Indices are clamped to [0, n_src) so a bad index cannot fault (the JAX
 // gather clamps as well).
 //
@@ -69,9 +74,25 @@ namespace {
 using namespace graph_common;
 
 constexpr int kMaxThreads = 128;
-constexpr int kStage = 8;            // k-steps of z @ W staged at once
-constexpr int kTargetBlocks = 132;   // an SM each, where the rows allow
-constexpr size_t kMaxSmem = 232448;  // 227 KB a block may opt into
+
+// matmul_rows' epilogue: the identity map, bias and relu,
+// relu((1 - beta) z + beta (z @ W) + b), z and b in shared memory
+struct IdentityMap {
+  const float* z;
+  int zp;
+  const float* b;
+  float beta;
+
+  template <int VEC>
+  __device__ __forceinline__ void operator()(int r, int c0,
+                                             float (&acc)[VEC]) const {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      acc[i] = fmaxf((1.f - beta) * z[r * zp + c0 + i] + beta * acc[i] +
+                         b[c0 + i],
+                     0.f);
+  }
+};
 
 // A lane group of `gw` lanes gathers a row, lane lg the column groups lg,
 // lg + gw, ... (VEC columns each).
@@ -89,12 +110,9 @@ gcnii_rows(const float* __restrict__ h, const float* __restrict__ h0,
   const int zp = (d + 3) / 4 * 4 + 4;  // padded z row: float4 reads,
                                        // no bank conflict
   float* w_s = smem;                         // (d, d) weights of client m
-  float* z_s = smem + (d * d + 3) / 4 * 4;  // (rows, zp), 16-byte aligned
-  int* idx_s = reinterpret_cast<int*>(z_s + rows * zp);  // (rows, f1)
-  float* mask_s = z_s + rows * zp + rows * f1;           // (rows, f1)
-  const int f1p = (f1 + BATCH - 1) / BATCH * BATCH;      // whole batches
-  int* src_s = reinterpret_cast<int*>(mask_s + rows * f1);  // (rows, f1p)
-  float* mv_s = mask_s + rows * f1 + rows * f1p;            // (rows, f1p)
+  float* b_s = smem + (d * d + 3) / 4 * 4;  // (d,) bias of client m
+  float* z_s = b_s + (d + 3) / 4 * 4;       // (rows, zp), 16-byte aligned
+  const Fanout fan(z_s + rows * zp, rows, f1, BATCH);
 
   const int m = blockIdx.y;
   const int r0 = blockIdx.x * rows;
@@ -103,25 +121,16 @@ gcnii_rows(const float* __restrict__ h, const float* __restrict__ h0,
   const int nthreads = blockDim.x;
   const size_t row0 = static_cast<size_t>(m) * n_dst + r0;
 
-  // the index rows first: the gather waits on them, the product on W
-  copy_async(idx_s, idx + row0 * f1, nrows * f1, tid, nthreads);
-  copy_async(mask_s, mask + row0 * f1, nrows * f1, tid, nthreads);
+  // the index rows and the bias first: the gather waits on them, the
+  // product on W
+  fan.load(idx, mask, row0, nrows, tid, nthreads);
+  copy_async(b_s, b + static_cast<size_t>(m) * d, d, tid, nthreads);
   BulkLoad w_load{&w_bar, false};
   w_load.start(w_s, w + static_cast<size_t>(m) * d * d, d * d, tid,
                nthreads);
   cp_async_wait_all();
   __syncthreads();
-  // each entry's source row, resolved once: a masked entry (and the padding
-  // up to whole batches) reads the row's self row, whose h is in flight
-  // anyway, with weight 0
-  for (int i = tid; i < nrows * f1p; i += nthreads) {
-    const int r = i / f1p;
-    const int f = i - r * f1p;
-    const float mv = f < f1 ? mask_s[r * f1 + f] : 0.f;
-    src_s[i] = min(max(idx_s[r * f1 + (mv != 0.f ? f : 0)], 0), n_src - 1);
-    mv_s[i] = mv;
-  }
-  __syncthreads();
+  fan.resolve(nrows, n_src, tid, nthreads);
 
   // gather: masked mean over the fanout plus the initial residual
   const float* hm = h + static_cast<size_t>(m) * n_src * d;
@@ -129,33 +138,14 @@ gcnii_rows(const float* __restrict__ h, const float* __restrict__ h0,
   const int ncg = d / VEC;
   const int sw = __ffs(gw) - 1;  // gw is a power of two
   if (const int rr = tid >> sw; rr < nrows) {
-    const int* sr = src_s + rr * f1p;
-    const float* mr = mv_s + rr * f1p;
-    const int self = min(max(idx_s[rr * f1], 0), n_src - 1);
-    float msum = 0.f;
-    for (int f = 0; f < f1; ++f) msum += mr[f];
-    const float denom = fmaxf(msum, 1.f);
+    const int self = min(max(fan.idx[rr * f1], 0), n_src - 1);
+    const float denom = fan.denom(rr);
     for (int cg = tid & (gw - 1); cg < ncg; cg += gw) {
       const int c0 = cg * VEC;
       float r0v[VEC];
       load_vec<VEC>(h0m + static_cast<size_t>(self) * d + c0, r0v);
       float s[VEC];
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) s[i] = 0.f;
-      for (int fb = 0; fb < f1; fb += BATCH) {
-        float mv[BATCH];
-        float v[BATCH][VEC];
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          mv[u] = mr[fb + u];
-          load_vec<VEC>(hm + static_cast<size_t>(sr[fb + u]) * d + c0, v[u]);
-        }
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) s[i] = fmaf(mv[u], v[u][i], s[i]);
-        }
-      }
+      fan.gather<VEC, BATCH>(hm, rr, d, c0, s);
       float z[VEC];
 #pragma unroll
       for (int i = 0; i < VEC; ++i)
@@ -167,59 +157,9 @@ gcnii_rows(const float* __restrict__ h, const float* __restrict__ h0,
   w_load.wait();
   __syncthreads();
 
-  // identity map + matmul + bias + relu from shared memory: a thread owns
-  // rows (2p, 2p + 1) x columns c0 .. c0 + VEC
-  const float* bm = b + static_cast<size_t>(m) * d;
-  const int npairs = (nrows + 1) / 2;
-  for (int it = tid; it < npairs * ncg; it += nthreads) {
-    const int ra = 2 * (it / ncg);
-    const int rb = min(ra + 1, nrows - 1);
-    const int c0 = (it % ncg) * VEC;
-    const float* za = z_s + ra * zp;
-    const float* zb = z_s + rb * zp;
-    float bv[VEC];
-    load_vec<VEC>(bm + c0, bv);  // in flight under the product
-    float acc_a[VEC], acc_b[VEC];
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc_a[i] = acc_b[i] = 0.f;
-    // kStage k-steps' operands are read from shared memory before their
-    // FMAs, so the reads overlap; each sum still runs k = 0, 1, ...
-    int k0 = 0;
-    for (; k0 + kStage <= d; k0 += kStage) {
-      float wv[kStage][VEC], xa[kStage], xb[kStage];
-      load_run<kStage>(za + k0, xa);
-      load_run<kStage>(zb + k0, xb);
-#pragma unroll
-      for (int u = 0; u < kStage; ++u)
-        load_vec<VEC>(w_s + (k0 + u) * d + c0, wv[u]);
-#pragma unroll
-      for (int u = 0; u < kStage; ++u) {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          acc_a[i] = fmaf(xa[u], wv[u][i], acc_a[i]);
-          acc_b[i] = fmaf(xb[u], wv[u][i], acc_b[i]);
-        }
-      }
-    }
-    for (int k = k0; k < d; ++k) {
-      float wv[VEC];
-      load_vec<VEC>(w_s + k * d + c0, wv);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        acc_a[i] = fmaf(za[k], wv[i], acc_a[i]);
-        acc_b[i] = fmaf(zb[k], wv[i], acc_b[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      acc_a[i] = fmaxf((1.f - beta) * za[c0 + i] + beta * acc_a[i] + bv[i],
-                       0.f);
-      acc_b[i] = fmaxf((1.f - beta) * zb[c0 + i] + beta * acc_b[i] + bv[i],
-                       0.f);
-    }
-    store_vec<VEC>(out + (row0 + ra) * d + c0, acc_a);
-    if (ra + 1 < nrows) store_vec<VEC>(out + (row0 + ra + 1) * d + c0, acc_b);
-  }
+  // identity map + matmul + bias + relu from shared memory
+  matmul_rows<VEC>(z_s, zp, w_s, out + row0 * d, nrows, d, d, tid, nthreads,
+                   IdentityMap{z_s, zp, b_s, beta});
 }
 
 template <int VEC, int BATCH>
@@ -257,46 +197,27 @@ int launch(const float* h, const float* h0, const int* idx, const float* mask,
            int n_src, int n_dst, int f1, int d, float alpha, float beta,
            cudaStream_t s) {
   const int gw = min(32, pow2_ceil(d / VEC));
-  const size_t zp = (d + 3) / 4 * 4 + 4;
-  const size_t smem_w = (static_cast<size_t>(d) * d + 3) / 4 * 4 *
-                        sizeof(float);
-  const int batch = f1 <= 4 ? 4 : 16;
-  const size_t f1p = (f1 + batch - 1) / batch * batch;
-  const size_t smem_row = (zp + 2 * static_cast<size_t>(f1) + 2 * f1p) *
-                          sizeof(float);
-  // threads a block: halved (down to one warp) while the grid would leave
-  // SMs idle; a lane group gathers one row
-  const int total = m * n_dst;
-  int threads = kMaxThreads;
-  while (threads > 32 && total / (threads / gw) < kTargetBlocks) threads /= 2;
-  const int rows = threads / gw;
-  const size_t smem = smem_w + rows * smem_row;
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   // h loads in flight a lane: one batch of 4 a row at the training fanout,
   // batches of 16 past it (three at the serving fanout of 33)
-  using Kernel = void (*)(const float*, const float*, const int*,
-                          const float*, const float*, const float*, float*,
-                          float*, int, int, int, int, float, float, int, int);
-  const Kernel narrow = batch == 4 ? gcnii_layer_kernel<VEC, 4>
-                                   : gcnii_layer_kernel<VEC, 16>;
-  const Kernel wide = batch == 4 ? gcnii_layer_kernel_wide<VEC, 4>
-                                 : gcnii_layer_kernel_wide<VEC, 16>;
-  if (smem > 48 * 1024) {
-    const Kernel both[2] = {narrow, wide};
-    for (const Kernel k : both) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-  }
+  const int batch = f1 <= 4 ? 4 : 16;
+  const size_t f1p = (f1 + batch - 1) / batch * batch;
+  const size_t smem_wb = ((static_cast<size_t>(d) * d + 3) / 4 * 4 +
+                          (d + 3) / 4 * 4) * sizeof(float);
+  const size_t smem_row = ((d + 3) / 4 * 4 + 4 + 2 * (f1 + f1p)) *
+                          sizeof(float);
+  const int threads = row_block_threads(m * n_dst, gw, smem_wb, smem_row);
+  const int rows = threads / gw;
   const dim3 grid((n_dst + rows - 1) / rows, m);
-  const Kernel kernel =
-      pick_wide(narrow, wide, grid.x * grid.y, threads, smem);
-  kernel<<<grid, threads, smem, s>>>(
-      h, h0, idx, mask, w, b, out, z_out, n_src, n_dst, f1, d, alpha, beta,
-      gw, rows);
-  return static_cast<int>(cudaGetLastError());
+  if (batch == 4)
+    return launch_pick(gcnii_layer_kernel<VEC, 4>,
+                       gcnii_layer_kernel_wide<VEC, 4>, grid, threads,
+                       smem_wb + rows * smem_row, s, h, h0, idx, mask, w, b,
+                       out, z_out, n_src, n_dst, f1, d, alpha, beta, gw,
+                       rows);
+  return launch_pick(gcnii_layer_kernel<VEC, 16>,
+                     gcnii_layer_kernel_wide<VEC, 16>, grid, threads,
+                     smem_wb + rows * smem_row, s, h, h0, idx, mask, w, b,
+                     out, z_out, n_src, n_dst, f1, d, alpha, beta, gw, rows);
 }
 
 }  // namespace

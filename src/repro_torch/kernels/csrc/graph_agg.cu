@@ -11,25 +11,60 @@
 // the masked mean, which the backward needs (dW = mean^T g), so the
 // backward never re-runs the forward.
 //
-// What bounds it on this card: at the training shapes (M = 3, n_src <= 512,
-// n_dst <= 512, F+1 = 4, d = d_out = 64) one launch moves under 1 MB
-// (~0.3 us at 3.35 TB/s) and does ~13 MFLOP (~0.2 us at 67 TFLOP/s fp32):
-// a launch costs its latency, set by the dependent idx -> h row loads of a
-// warp's rows. At the eval shape (n_src = n_dst = 2708, F+1 = 33) the
-// gather re-reads ~69 MB of h rows through L2, unique bytes are ~6 MB.
+// What bounds it on this card: latency. At the training shapes (M = 3,
+// n_src <= 512, n_dst <= 512, F+1 = 4, d = d_out = 64) one launch moves
+// under 1 MB (~0.3 us at 3.35 TB/s) and does ~13 MFLOP (~0.2 us at 67
+// TFLOP/s fp32), so a launch costs its chains: W -> product, and idx -> h
+// rows -> mean -> product. Tensor cores would buy nothing and cost the
+// error budget. At the eval shape (n_src = n_dst = 2708, F+1 = 33) the
+// unique bytes are ~6 MB (~1.9 us), the gather re-reads ~69 MB of h rows
+// through L2, and the loads in flight set the time.
 //
-// Design, as in gcnii_layer.cu. The TPU kernel builds a one-hot
-// (128 x n_src) scatter matrix and stages all of h in VMEM; here the gather
-// is direct from global memory through L2 (lanes across d, one coalesced
-// row segment per fanout entry), so any n_src works. A block owns kRows
-// destination rows of one client (blockIdx.y = m). The client's W (d x
-// d_out; 48 KB at d = 192 after a concat aggregation, d_out = 64) is staged
-// in shared memory once per block, each warp gathers its rows' means into a
-// shared tile, and the (kRows x d)(d x d_out) product runs from shared
-// memory in fp32 FMA (no TF32). Fanout entries with mask 0 are skipped
-// (their term is 0 * h); indices are clamped to [0, n_src) so a bad index
-// cannot fault (the JAX gather clamps as well). Tensor cores and async
-// copies are left for a later change.
+// Design: GCNII's (gcnii_layer.cu) without the residual and identity map,
+// with d_out != d. The TPU kernel builds a one-hot (128 x n_src) scatter
+// matrix and stages all of h in VMEM; here the gather is direct from global
+// memory through L2, so any n_src works. A block owns `rows` destination
+// rows of one client (blockIdx.y = m); blocks shrink to a warp while the
+// grid would leave SMs idle, so the small layers (n_dst 64 and 16) spread.
+// What the first version lost, and what this one does about it:
+//  - W was staged by every thread with plain loads before anything else.
+//    Now thread 0 hands the client's W (d x d_out, one contiguous block;
+//    16 KB at d = 64, 48 KB at d = 192) to the copy engine with one
+//    cp.async.bulk on an mbarrier (cp.async 4-byte chunks when it is not
+//    16-byte aligned or sized), and the block waits on it only just before
+//    the product; the gather runs under the copy.
+//  - The gather re-read mask and idx per lane and column behind a branch
+//    on the mask, so each h load waited on its own mask -> idx chain. Now
+//    (graph_common.cuh Fanout, shared with the GCNII kernel) the block's
+//    idx and mask rows (one contiguous run) come in by cp.async once, and
+//    each entry's source row is resolved once into a shared table padded to
+//    whole batches. A lane group per row (VEC = 4 columns a lane, float4
+//    loads) issues the h loads of a batch of up to 16 fanout entries before
+//    the first add, with no branch or select between them. A masked entry
+//    (and the padding) reads the row's first entry's source row, in flight
+//    anyway, with weight 0. The mean goes to a shared tile.
+//  - The product was one d-long chain an output with two shared reads a
+//    step. Now (graph_common.cuh matmul_rows) each thread owns two rows x
+//    VEC columns, eight independent accumulators, each summed over k from 0
+//    upward in one fmaf chain, with the mean and W read from shared memory
+//    kStage k-steps ahead.
+//  - Fixed 16 rows a block gave the layers of 64 and 16 rows 12 and 3
+//    blocks. Now rows a block follow n_dst, and two register budgets
+//    (graph_common.cuh, pick_wide) keep a whole batch of loads in flight
+//    where the grid fits on the card at once (training, small n_dst) and
+//    eight blocks an SM past that (eval).
+//  - The staged fanout takes 4 * (2 (F+1) + 2 F1p) bytes a row (F1p: F+1
+//    rounded up to whole batches of 4 or 16) beside W and the means, so a
+//    long fanout shrinks the block, down to one row; the launch refuses
+//    only where one row and W outgrow a block's 227 KB (F+1 past ~13000 at
+//    d = d_out = 64).
+// Indices are clamped to [0, n_src) so a bad index cannot fault (the JAX
+// gather clamps as well).
+//
+// Precision: fp32 FMA throughout, no TF32. The masked sum runs over f
+// ascending from 0 and the product over k ascending, as in the first
+// version; a masked entry's term is fmaf(0, h, s) = s exactly for finite h,
+// as the skip gave (s starts at +0 and is never -0).
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -38,83 +73,121 @@
 
 #include <cuda_runtime.h>
 
+#include "graph_common.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 2;
-constexpr int kRows = kWarps * kRowsPerWarp;  // destination rows per block
-constexpr int kThreads = kWarps * 32;
-constexpr size_t kMaxSmem = 232448;           // 227 KB a block may opt into
+using namespace graph_common;
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kMaxThreads = 128;
+
+// A lane group of `gw` lanes gathers a row, lane lg the column groups lg,
+// lg + gw, ... (VEC columns each); VEC columns of d_out in the product.
+template <int VEC, int BATCH>
+__device__ __forceinline__ void
+gcn_rows(const float* __restrict__ h, const int* __restrict__ idx,
+         const float* __restrict__ mask, const float* __restrict__ w,
+         float* __restrict__ out, float* __restrict__ mean_out, int n_src,
+         int n_dst, int f1, int d, int d_out, int gw, int rows) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t w_bar;
+  const int ap = (d + 3) / 4 * 4 + 4;  // padded mean row: float4 reads,
+                                       // no bank conflict
+  float* w_s = smem;                            // (d, d_out) of client m
+  float* a_s = smem + (d * d_out + 3) / 4 * 4;  // (rows, ap), 16-B aligned
+  const Fanout fan(a_s + rows * ap, rows, f1, BATCH);
+
+  const int m = blockIdx.y;
+  const int r0 = blockIdx.x * rows;
+  const int nrows = min(rows, n_dst - r0);
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const size_t row0 = static_cast<size_t>(m) * n_dst + r0;
+
+  // the index rows first: the gather waits on them, the product on W
+  fan.load(idx, mask, row0, nrows, tid, nthreads);
+  BulkLoad w_load{&w_bar, false};
+  w_load.start(w_s, w + static_cast<size_t>(m) * d * d_out, d * d_out, tid,
+               nthreads);
+  cp_async_wait_all();
+  __syncthreads();
+  fan.resolve(nrows, n_src, tid, nthreads);
+
+  // gather: masked mean over the fanout
+  const float* hm = h + static_cast<size_t>(m) * n_src * d;
+  const int ncg = d / VEC;
+  const int sw = __ffs(gw) - 1;  // gw is a power of two
+  if (const int rr = tid >> sw; rr < nrows) {
+    const float denom = fan.denom(rr);
+    for (int cg = tid & (gw - 1); cg < ncg; cg += gw) {
+      const int c0 = cg * VEC;
+      float s[VEC];
+      fan.gather<VEC, BATCH>(hm, rr, d, c0, s);
+      float a[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) a[i] = s[i] / denom;
+      store_vec<VEC>(a_s + rr * ap + c0, a);
+      if (mean_out != nullptr)
+        store_vec<VEC>(mean_out + (row0 + rr) * d + c0, a);
+    }
+  }
+  w_load.wait();
+  __syncthreads();
+
+  // (rows x d) @ (d x d_out) from shared memory
+  matmul_rows<VEC>(a_s, ap, w_s, out + row0 * d_out, nrows, d, d_out, tid,
+                   nthreads);
+}
+
+template <int VEC, int BATCH>
+__global__ void __launch_bounds__(kMaxThreads, 8)
 graph_agg_kernel(const float* __restrict__ h, const int* __restrict__ idx,
                  const float* __restrict__ mask,
                  const float* __restrict__ w, float* __restrict__ out,
                  float* __restrict__ mean_out, int n_src, int n_dst, int f1,
-                 int d, int d_out) {
-  extern __shared__ float smem[];
-  float* w_s = smem;              // (d, d_out) weights of client m
-  float* a_s = smem + d * d_out;  // (kRows, d) masked means of this block
+                 int d, int d_out, int gw, int rows) {
+  gcn_rows<VEC, BATCH>(h, idx, mask, w, out, mean_out, n_src, n_dst, f1, d,
+                       d_out, gw, rows);
+}
 
-  const int m = blockIdx.y;
-  const int row0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+// the same with the register budget of one block an SM (pick_wide)
+template <int VEC, int BATCH>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+graph_agg_kernel_wide(const float* __restrict__ h,
+                      const int* __restrict__ idx,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ w, float* __restrict__ out,
+                      float* __restrict__ mean_out, int n_src, int n_dst,
+                      int f1, int d, int d_out, int gw, int rows) {
+  gcn_rows<VEC, BATCH>(h, idx, mask, w, out, mean_out, n_src, n_dst, f1, d,
+                       d_out, gw, rows);
+}
 
-  const float* hm = h + static_cast<size_t>(m) * n_src * d;
-  const int* idxm = idx + static_cast<size_t>(m) * n_dst * f1;
-  const float* maskm = mask + static_cast<size_t>(m) * n_dst * f1;
-  const float* wm = w + static_cast<size_t>(m) * d * d_out;
-  float* outm = out + static_cast<size_t>(m) * n_dst * d_out;
-  float* meanm = mean_out == nullptr
-                     ? nullptr
-                     : mean_out + static_cast<size_t>(m) * n_dst * d;
-
-  for (int i = threadIdx.x; i < d * d_out; i += kThreads) w_s[i] = wm[i];
-
-  // gather: masked mean over the fanout
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int lr = warp * kRowsPerWarp + rr;
-    const int r = row0 + lr;
-    float* ar = a_s + lr * d;
-    if (r >= n_dst) {  // ragged last tile: never stored
-      for (int c = lane; c < d; c += 32) ar[c] = 0.f;
-      continue;
-    }
-    const int* ir = idxm + static_cast<size_t>(r) * f1;
-    const float* mr = maskm + static_cast<size_t>(r) * f1;
-    float msum = 0.f;
-    for (int f = 0; f < f1; ++f) msum += mr[f];
-    const float denom = fmaxf(msum, 1.f);
-    for (int c = lane; c < d; c += 32) {
-      float s = 0.f;
-#pragma unroll 4
-      for (int f = 0; f < f1; ++f) {
-        const float mv = mr[f];
-        if (mv != 0.f) {
-          const int src = min(max(ir[f], 0), n_src - 1);
-          s += mv * hm[static_cast<size_t>(src) * d + c];
-        }
-      }
-      const float a = s / denom;
-      ar[c] = a;
-      if (meanm != nullptr) meanm[static_cast<size_t>(r) * d + c] = a;
-    }
-  }
-  __syncthreads();
-
-  // (kRows x d) @ (d x d_out) from shared memory
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int lr = warp * kRowsPerWarp + rr;
-    const int r = row0 + lr;
-    if (r >= n_dst) continue;
-    const float* ar = a_s + lr * d;
-    for (int c = lane; c < d_out; c += 32) {
-      float acc = 0.f;
-      for (int k = 0; k < d; ++k) acc = fmaf(ar[k], w_s[k * d_out + c], acc);
-      outm[static_cast<size_t>(r) * d_out + c] = acc;
-    }
-  }
+template <int VEC>
+int launch(const float* h, const int* idx, const float* mask, const float* w,
+           float* out, float* mean_out, int m, int n_src, int n_dst, int f1,
+           int d, int d_out, cudaStream_t s) {
+  const int gw = min(32, pow2_ceil(d / VEC));
+  // h loads in flight a lane: one batch of 4 a row at the training fanout,
+  // batches of 16 past it (three at the eval fanout of 33)
+  const int batch = f1 <= 4 ? 4 : 16;
+  const size_t f1p = (f1 + batch - 1) / batch * batch;
+  const size_t smem_w = (static_cast<size_t>(d) * d_out + 3) / 4 * 4 *
+                        sizeof(float);
+  const size_t smem_row = ((d + 3) / 4 * 4 + 4 + 2 * (f1 + f1p)) *
+                          sizeof(float);
+  const int threads = row_block_threads(m * n_dst, gw, smem_w, smem_row);
+  const int rows = threads / gw;
+  const dim3 grid((n_dst + rows - 1) / rows, m);
+  if (batch == 4)
+    return launch_pick(graph_agg_kernel<VEC, 4>,
+                       graph_agg_kernel_wide<VEC, 4>, grid, threads,
+                       smem_w + rows * smem_row, s, h, idx, mask, w, out,
+                       mean_out, n_src, n_dst, f1, d, d_out, gw, rows);
+  return launch_pick(graph_agg_kernel<VEC, 16>,
+                     graph_agg_kernel_wide<VEC, 16>, grid, threads,
+                     smem_w + rows * smem_row, s, h, idx, mask, w, out,
+                     mean_out, n_src, n_dst, f1, d, d_out, gw, rows);
 }
 
 }  // namespace
@@ -136,18 +209,15 @@ extern "C" int graph_agg_launch(const float* h, const int* idx,
   }
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const size_t smem = (static_cast<size_t>(d) * d_out
-                       + static_cast<size_t>(kRows) * d) * sizeof(float);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        graph_agg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((n_dst + kRows - 1) / kRows, m);
-  graph_agg_kernel<<<grid, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      h, idx, mask, w, out, mean_out, n_src, n_dst, f1, d, d_out);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // float4 columns need d and d_out multiples of 4 and 16-byte aligned
+  // rows (a view with an odd storage offset takes the scalar instantiation)
+  const bool vec4 = d % 4 == 0 && d_out % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(out) |
+        reinterpret_cast<uintptr_t>(mean_out)) & 15) == 0;
+  if (vec4)
+    return launch<4>(h, idx, mask, w, out, mean_out, m, n_src, n_dst, f1, d,
+                     d_out, s);
+  return launch<1>(h, idx, mask, w, out, mean_out, m, n_src, n_dst, f1, d,
+                   d_out, s);
 }

@@ -234,8 +234,12 @@ def graph_agg_cuda(h, idx, mask, w, *, save: bool = False):
     """Client-stacked GCN aggregation on the hand-written Hopper kernel.
 
     Same contract as ``graph_agg_plain``; every tensor must be contiguous
-    on one CUDA device (h, mask, w float32; idx int32). Outputs are
-    allocated here and the kernel runs on the current stream.
+    on one CUDA device (h, mask, w float32; idx int32). A block stages W
+    and, for each of its rows, the mean and the fanout, about 16·(F+1) B;
+    a long fanout shrinks the block, down to one row, and the launch
+    raises only where W and one row outgrow a block's 227 KB of shared
+    memory (F+1 past ~13000 at d = d_out = 64). Outputs are allocated here
+    and the kernel runs on the current stream.
     """
     fn = "graph_agg_cuda"
     m, n_src, d, n_dst, f1, dev = _cuda_stack(fn, h, idx)
@@ -276,12 +280,14 @@ def graph_agg_csr_cuda(h, idx_slab, seg_slab, ew_slab, w, n_dst: int, *,
     Same contract as ``graph_agg_csr_plain``; every tensor must be
     contiguous on one CUDA device (h, ew, w float32; idx, seg int32). Slots
     may come in any order within a tile's slab, and a slab may be of any
-    length: the kernel sorts each slab by row into a scratch buffer
-    allocated here (8 B a slot). W and the tile's means, (d·d_out +
-    128·d)·4 B, must fit a block's shared memory beside 9.7 KB of
-    counters (227 KB in all; d = 192 with d_out = 64 fits), else the launch
-    raises. Outputs are allocated here and the kernel runs on the current
-    stream.
+    length: a tile in row order (seg never decreasing, pads last, as
+    ``ell_to_slabs`` and ``plan_csr_slabs`` lay it out) is read in place,
+    one out of order is sorted by row inside the kernel, through a scratch
+    buffer allocated here (8 B a slot) where a block's rows outgrow shared
+    memory. W, a block's means and index data of up to 2·8192 slots must
+    fit a block's shared memory (227 KB; d = 192 with d_out = 64 fits),
+    else the launch raises. Outputs are allocated here and the kernel runs
+    on the current stream.
     """
     fn = "graph_agg_csr_cuda"
     if not isinstance(h, torch.Tensor) or h.device.type != "cuda":

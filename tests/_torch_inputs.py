@@ -42,7 +42,8 @@ def gcn_inputs(seed, m, n_src, n_dst, f1, d, d_out, ragged=False):
     rng = np.random.default_rng(seed)
     h = rng.normal(size=(m, n_src, d)).astype(np.float32)
     idx = rng.integers(0, n_src, size=(m, n_dst, f1)).astype(np.int32)
-    idx[:, :, 1] = idx[:, :, 2]              # repeated sources in a fanout
+    if f1 >= 3:
+        idx[:, :, 1] = idx[:, :, 2]          # repeated sources in a fanout
     mask = (rng.random((m, n_dst, f1)) < 0.75).astype(np.float32)
     if ragged:
         mask[:, ::3, :] = 0.0                # zero-degree rows
@@ -55,6 +56,16 @@ GCN_CASES = [
     (3, 200, 130, 4, 64, 64, True),          # n_dst % 128 != 0, zero rows
     (3, 150, 77, 4, 192, 64, False),         # concat width 192 -> 64
     (2, 40, 1, 3, 24, 8, True),              # n_dst = 1
+    # the CUDA kernel's edges: self only, four whole batches of 16 entries,
+    # scalar columns with W not 16-byte sized, W of 64 KB, the fewest rows,
+    # and the million-node preset's training widths
+    (2, 40, 12, 1, 16, 8, False),            # F+1 = 1
+    (2, 80, 10, 64, 16, 16, True),           # F+1 = 64
+    (2, 40, 15, 5, 7, 7, False),             # d = d_out = 7
+    (2, 60, 20, 5, 128, 128, False),         # d = 128
+    (3, 64, 16, 4, 64, 64, False),           # n_dst = 16
+    (2, 256, 64, 4, 32, 32, False),          # powerlaw layer 0
+    (2, 64, 16, 4, 32, 16, True),            # powerlaw layer 1
 ]
 
 
@@ -102,12 +113,14 @@ def cotangent(seed, shape):
 
 def rand_csr(seed, n_dst, n_src, max_deg=6, p_zero=0.3, hub=0):
     """Ragged host CSR: ~p_zero of the rows have no neighbors; with ``hub``
-    row 0 has that many, so its tile's slab outgrows 128·33 slots."""
+    row 0 has that many (a tuple: rows 0 and 3), so its tile's slab
+    outgrows 128·33 slots."""
     rng = np.random.default_rng(seed)
     deg = rng.integers(1, max_deg + 1, size=n_dst)
     deg[rng.random(n_dst) < p_zero] = 0
-    if hub:
-        deg[0] = hub
+    for row, n in zip((0, 3), hub if isinstance(hub, tuple) else (hub,)):
+        if n:
+            deg[row] = n
     indptr = np.zeros(n_dst + 1, np.int32)
     indptr[1:] = np.cumsum(deg, dtype=np.int32)
     indices = rng.integers(0, n_src, size=int(indptr[-1])).astype(np.int32)
@@ -124,13 +137,17 @@ def csr_weights(seed, nnz, kind):
     return (lo + (hi - lo) * rng.random(nnz)).astype(np.float32)
 
 
-def shuffle_slabs(seed, n_tiles, *slabs):
-    """The same slab layout with the slots of every tile permuted: edges of
-    a row no longer contiguous or in row order."""
+def shuffle_slabs(seed, n_tiles, *slabs, order="shuffled"):
+    """The same slab layout with the slots of every tile permuted (order
+    "shuffled": edges of a row no longer contiguous or in row order, pads
+    among the live slots), or of every odd tile only ("mixed": tiles in
+    row order beside tiles out of it)."""
     rng = np.random.default_rng(seed)
     slab = slabs[0].shape[0] // n_tiles
-    perm = np.concatenate([t * slab + rng.permutation(slab)
-                           for t in range(n_tiles)]).astype(np.int32)
+    perms = [rng.permutation(slab) for _ in range(n_tiles)]
+    perm = np.concatenate([
+        t * slab + (p if order == "shuffled" or t % 2 else np.arange(slab))
+        for t, p in enumerate(perms)]).astype(np.int32)
     return tuple(s[perm] for s in slabs)
 
 
@@ -141,6 +158,12 @@ CSR_CASES = [
     ("empty graph", 130, 16, 6, 1.0, 0, "none"),
     ("n_dst=1", 1, 40, 6, 0.0, 0, "rand"),
     ("hub tile", 200, 500, 6, 0.2, 6000, "rand"),    # slab 6144 > 128·33
+    ("two hub rows", 200, 500, 6, 0.2, (300, 200), "rand"),
+    ("mostly pads", 300, 64, 6, 0.7, 0, "rand"),     # pads among live slots
+                                                     # once shuffled
+    ("hub past one window", 200, 500, 6, 0.2, 9000, "rand"),  # slab > 8192
+    ("nine tiles", 1100, 400, 6, 0.3, 0, "rand"),    # blocks of 8 rows: a
+                                                     # warp sorts two each
 ]
 
 

@@ -6,7 +6,8 @@
     tile whose slab outgrows 128·33 slots;
   * ``graph_agg_csr_plain`` against ``graph_agg_csr_pallas`` (interpret
     mode, as ``tests/test_csr_kernel.py`` runs it) and the oracles, with
-    edges in any order within a slab, at the reference's 2e-5;
+    edges in any order within a slab (every tile shuffled, or only the odd
+    ones), at the reference's 2e-5;
   * the port's ``graph_agg_csr`` gradients in h, w and the edge weights
     against ``jax.grad`` of the reference's op at 5e-4, including the tie
     of ``jnp.maximum`` at a weight sum of exactly 1;
@@ -103,13 +104,14 @@ def _stack(*slabs):
 
 
 @pytest.mark.parametrize("i,case", list(enumerate(CSR_CASES)), ids=CASE_IDS)
-@pytest.mark.parametrize("order", ["planned", "shuffled"])
+@pytest.mark.parametrize("order", ["planned", "shuffled", "mixed"])
 def test_graph_agg_csr_plain_matches_pallas_and_oracles(i, case, order):
     indptr, indices, ew, h, w = _case(i, *case)
     idx_s, seg_s, ew_s, n_dst = csr_plan.plan_csr_slabs(indptr, indices, ew)
-    if order == "shuffled":
+    if order != "planned":
         n_tiles = max(1, -(-n_dst // graph_agg.DST_BLOCK))
-        idx_s, seg_s, ew_s = shuffle_slabs(i, n_tiles, idx_s, seg_s, ew_s)
+        idx_s, seg_s, ew_s = shuffle_slabs(i, n_tiles, idx_s, seg_s, ew_s,
+                                           order=order)
     got, mean = graph_agg.graph_agg_csr_plain(
         torch.from_numpy(h)[None], *_stack(idx_s, seg_s, ew_s),
         torch.from_numpy(w)[None], n_dst, save=True)

@@ -137,13 +137,15 @@ def test_card_gradients_match_cpu(cuda_device):
 def _csr_case(i, label, n_dst, n_src, max_deg, p_zero, hub, weights, order,
               dev):
     """One client's planned slab layout (slots shuffled within each tile
-    for order="shuffled") with h (1, n_src, 32) and w (1, 32, 32)."""
+    for order="shuffled", within each odd tile for "mixed") with h
+    (1, n_src, 32) and w (1, 32, 32)."""
     indptr, indices = rand_csr(i, n_dst, n_src, max_deg, p_zero, hub)
     ew = csr_weights(200 + i, len(indices), weights)
     idx_s, seg_s, ew_s, n_dst = plan_csr_slabs(indptr, indices, ew)
-    if order == "shuffled":
+    if order != "planned":
         idx_s, seg_s, ew_s = shuffle_slabs(
-            i, max(1, -(-n_dst // graph_agg.DST_BLOCK)), idx_s, seg_s, ew_s)
+            i, max(1, -(-n_dst // graph_agg.DST_BLOCK)), idx_s, seg_s, ew_s,
+            order=order)
     rng = np.random.default_rng(300 + i)
     h = rng.normal(size=(1, n_src, 32)).astype(np.float32)
     w = (rng.normal(size=(1, 32, 32)) / np.sqrt(32)).astype(np.float32)
@@ -156,7 +158,7 @@ def _csr_case(i, label, n_dst, n_src, max_deg, p_zero, hub, weights, order,
 @pytest.mark.cuda
 @pytest.mark.parametrize("i,case", list(enumerate(CSR_CASES)),
                          ids=[c[0] for c in CSR_CASES])
-@pytest.mark.parametrize("order", ["planned", "shuffled"])
+@pytest.mark.parametrize("order", ["planned", "shuffled", "mixed"])
 def test_graph_agg_csr_cuda_kernel_matches_plain(cuda_device, i, case, order):
     *args, n_dst, indptr = _csr_case(i, *case, order, cuda_device)
     before = graph_agg.graph_agg_csr_cuda.launches
