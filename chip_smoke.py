@@ -55,7 +55,33 @@ Phases, each printing its own lines:
             the preset's kernel and none of the others; 4 rounds from the
             same parameters and batches on the card and on the CPU; rounds/s
             on the host clock, where a round's time goes, and one profiled
-            round's device-busy time and idle share;
+            round's device-busy time and idle share; the batches come
+            through the PrefetchSampler's worker thread (pinned host
+            generations, non-blocking copies): its sampling, wait and copy
+            ms a round, and 20 profiled rounds at prefetch_buffers 2 and 1
+            with their idle share;
+   comp     the cora hot shape of the reference's comm_compression bench
+            (M 3, L 4, hidden 64, GCNII, batch 16, fanout 3, size cap 512,
+            Adam, Q 1) for 60 rounds with an exact eval every 10, under no
+            codec, int8, fp8 and top-k with error feedback at k = 8: each
+            codec's bytes a round equal the reference's price, int8 cuts
+            them >= 3x and top-k >= 6x, every final loss within 0.5 and val
+            accuracy within 0.05 of the uncompressed run's; where a
+            compressed round's time goes;
+   fault    the same shape under the fault bench's DEADLINE_FAULTS (20 %
+            drops, a 60 ms deadline, skewed latency), alone and with int8:
+            val accuracy within 0.05 of the fault-free anchor, the bytes
+            equal to the sum of the per-round delivered-only prices, the
+            participation, catch-up count and virtual clock equal to a host
+            replay of the schedule; where a fault round's time goes;
+   resume   faults + int8 with error feedback: 40 rounds with a checkpoint
+            every 20 (a temporary directory removed at exit), resumed to 60,
+            against two uninterrupted 60-round runs: bitwise where those two
+            agree bitwise, else within their distance;
+   serve-comp cora-gcnii-glasu served with int8 and top-k at k = 8: the
+            cold answer bills the reference session's bytes, the warm one is
+            bitwise the cold one at 0 bytes, card vs CPU at the reference's
+            COMP_TOL;
 6. powerlaw builds ``powerlaw-1m`` (2^20 nodes, its 268 MB feature file in
             a temporary directory removed at exit), trains
             ``powerlaw1m-gcn-glasu`` for its 50 rounds (finite losses, the
@@ -146,6 +172,37 @@ POWERLAW_NODES = 1 << 20
 POWERLAW_COMM_BYTES = 422_400
 POWERLAW_WIRE_BYTES = 8320
 POWERLAW_QUERY = tuple(range(0, 16000, 1000))
+# the federated runtime's phases: the cora hot shape of the reference's
+# benchmarks/comm_compression.py:50 and fault_bench.py:55 (Adam, Q = 1, lr
+# 0.01), 60 rounds (their full mode), an exact eval every 10
+COMP_HOT = dict(dataset="cora", n_clients=3, n_layers=4, hidden=64,
+                backbone="gcnii", batch_size=16, fanout=3, size_cap=512)
+COMP_ROUNDS, COMP_EVAL_EVERY = 60, 10
+COMP_CODECS = (("none", None), ("int8", {"method": "int8"}),
+               ("fp8", {"method": "fp8"}),
+               ("topk_ef_k8", {"method": "topk_ef", "k": 8}))
+# bytes a round under each codec: the reference's analytic price (its
+# sampler's cost model at the codec's wire size; tests/test_torch_compression
+# .py pins them), and the bench's gates
+COMP_BYTES_PER_ROUND = {"none": 823_680, "int8": 228_096, "fp8": 215_424,
+                        "topk_ef_k8": 114_048}
+COMP_LOSS_SLACK, COMP_ACC_SLACK = 0.5, 0.05
+# fault_bench.py:62-68: skewed latency (lognormal around 20 ms, a 15 %
+# Pareto tail), a 20 % upload-drop rate and a 60 ms deadline
+FAULT_LATENCY = dict(base_latency_ms=20.0, latency_sigma=0.5,
+                     client_speed_sigma=0.2, straggler_prob=0.15,
+                     straggler_scale=10.0, straggler_alpha=1.5)
+DEADLINE_FAULTS = dict(seed=7, drop_prob=0.2, deadline_ms=60.0,
+                       **FAULT_LATENCY)
+RESUME_AT, RESUME_EVERY = 40, 20
+# compressed serving of cora-gcnii-glasu: the reference session's bill for
+# the 16-query cold answer (278 + 16 fresh rows; pinned by a CPU test), and
+# the reference's tolerance between compressed implementations
+# (tests/test_backend_conformance.py COMP_TOL)
+SERVE_CODECS = (("int8", {"method": "int8"}),
+                ("topk_ef_k8", {"method": "topk_ef", "k": 8}))
+SERVE_WIRE_BYTES = {"int8": 123_480, "topk_ef_k8": 59_976}
+COMP_TOL = dict(rtol=2e-4, atol=2e-4)
 # H100 SXM peaks at its full 700 W limit (NVIDIA's data sheet): device-memory
 # rate and dense fp32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1199,12 +1256,14 @@ def _adam_resync(torch, mods, cfg, mcfg, p0, host):
           f"{ADAM_LOSS_TOL['atol']:.0e})")
 
 
-def _round_breakdown(torch, mods, trainer, kernel):
+def _round_breakdown(torch, mods, trainer, kernel, faults_fn=None):
     """Where a round's time goes on the host clock (medians of 20 rounds
     after the run): sampling, the copy to the card, the round to sync; the
     kernel's launches in one round; one round under torch.profiler for the
-    device's busy time and idle share."""
+    device's busy time and idle share. ``faults_fn`` gives a fault run's
+    next round's plans."""
     backend, st = trainer.backend, trainer.state
+    kw = lambda: {} if faults_fn is None else {"faults": faults_fn()}
     params, opt_state = st.params, st.opt_state
     samp, copy, rnd = [], [], []
     for _ in range(20):
@@ -1215,7 +1274,7 @@ def _round_breakdown(torch, mods, trainer, kernel):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         kernel.launches = 0
-        out = backend.run_step(params, opt_state, batch)
+        out = backend.run_step(params, opt_state, batch, **kw())
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         per_round = kernel.launches
@@ -1240,7 +1299,7 @@ def _round_breakdown(torch, mods, trainer, kernel):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        backend.run_step(params, opt_state, batch)
+        backend.run_step(params, opt_state, batch, **kw())
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages()
@@ -1321,11 +1380,317 @@ def phase_train(torch, mods):
                     or not torch.isfinite(leaf).all():
                 raise AssertionError(f"{name}: a trained parameter is not a "
                                      f"finite tensor on {trainer.device}")
+        pf = trainer.prefetch_stats
+        print(f"train: {name} prefetch (buffers {cfg.prefetch_buffers}, "
+              f"{pf['rounds']} rounds): sample {pf['sample_ms']:.3f} ms a "
+              f"round in the worker thread, consumer wait "
+              f"{pf['wait_ms']:.3f} ms a round, pinned copy "
+              f"{_ms(pf['copy_ms'])} a round (device)")
         _cpu_vs_card(torch, mods, cfg, trainer)
         stages = _round_breakdown(torch, mods, trainer, kernel)
+        prefetch = _prefetch_profile(torch, mods, cfg, name)
         out[name] = dict(kernel=op, launches=launches, captured=cap.calls,
                          rounds=res.rounds_run, seconds=wall,
-                         test_acc=res.test_acc, **stages)
+                         test_acc=res.test_acc, prefetch=prefetch, **stages)
+    return out
+
+
+def _ms(v):
+    """A device time in ms, or "not measured" (no CUDA copy was timed)."""
+    return "not measured" if v is None else f"{v:.3f} ms"
+
+
+def _prefetch_profile(torch, mods, cfg, name):
+    """20 rounds of ``cfg`` through the Trainer (its PrefetchSampler) at
+    prefetch_buffers 2 and 1, each under torch.profiler: the worker's
+    sampling ms a round, the consumer's wait, the copies' device ms a
+    round, and the window's device-busy time and idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for n_buf in (2, 1):
+        trainer = mods["Trainer"](cfg.with_(rounds=20, eval_every=0,
+                                            target_acc=None,
+                                            prefetch_buffers=n_buf))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA)
+        st = trainer.prefetch_stats
+        out[n_buf] = dict(st, idle_share=1 - busy_us / wall_us,
+                          wall_ms_per_round=wall_us / 20e3)
+        print(f"train: {name} prefetch_buffers {n_buf}: 20 profiled rounds, "
+              f"sample {st['sample_ms']:.3f} ms a round (worker thread), "
+              f"consumer wait {st['wait_ms']:.3f} ms a round, copy "
+              f"{_ms(st['copy_ms'])} a round (device), wall "
+              f"{wall_us / 20e3:.3f} ms a round under the profiler, device "
+              f"busy {busy_us / 20e3:.3f} ms a round, idle share "
+              f"{1 - busy_us / wall_us:.3f}")
+    return out
+
+
+# ------------------------------------------------- the federated runtime
+def _hot_config(mods, **kw):
+    """The reference benches' cora hot shape (Adam, Q = 1) with ``kw``."""
+    return mods["ExperimentConfig"](
+        name="fed-runtime", rounds=COMP_ROUNDS, eval_every=COMP_EVAL_EVERY,
+        lr=0.01, **COMP_HOT).with_(**kw)
+
+
+def _counted_run(torch, mods, cfg, data, start=0):
+    """One Trainer run on the card, the launch counters zeroed just before
+    it and read just after: fails unless the GCNII kernel launched at least
+    (1 + Q)·L times a round run and no other kernel launched."""
+    graph_agg = mods["graph_agg"]
+    _zero_counts(graph_agg)                          # ---- counted run
+    trainer = mods["Trainer"](cfg, data=data)
+    t0 = time.perf_counter()
+    res = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts(graph_agg)                      # ---- read counts
+    launches = counts.pop("gcnii_layer_cuda")
+    mcfg = trainer.model_cfg
+    want = (1 + mcfg.n_local_steps) * mcfg.n_layers * (res.rounds_run - start)
+    if launches < want or any(counts.values()):
+        raise AssertionError(f"{cfg.name}: gcnii_layer_cuda launched "
+                             f"{launches} times (want >= {want}), the other "
+                             f"kernels {counts}")
+    for leaf in mods["tree_leaves"](res.params):
+        if leaf.device.type != trainer.device.type \
+                or not torch.isfinite(leaf).all():
+            raise AssertionError(f"{cfg.name}: a trained parameter is not a "
+                                 f"finite tensor on {trainer.device}")
+    return res, trainer, wall, launches
+
+
+def phase_comp_train(torch, mods, data):
+    """The cora hot shape trained 60 rounds under each codec, held to the
+    reference bench's gates and to the reference's bytes a round."""
+    results, trainers = {}, {}
+    for label, cc in COMP_CODECS:
+        cfg = _hot_config(mods, name=f"comm-{label}", compression=cc)
+        res, trainer, wall, launches = _counted_run(torch, mods, cfg, data)
+        per_round = res.comm_bytes // res.rounds_run
+        if res.comm_bytes != COMP_BYTES_PER_ROUND[label] * COMP_ROUNDS:
+            raise AssertionError(
+                f"{label}: {res.comm_bytes} B in {res.rounds_run} rounds, "
+                f"expected {COMP_BYTES_PER_ROUND[label]} a round")
+        results[label] = dict(bytes_per_round=per_round,
+                              final_loss=res.history[-1]["loss"],
+                              val_acc=res.val_acc, test_acc=res.test_acc,
+                              rounds_per_s=res.rounds_run / wall,
+                              launches=launches)
+        trainers[label] = trainer
+    dense = results["none"]
+    for label, r in results.items():
+        r["reduction"] = dense["bytes_per_round"] / r["bytes_per_round"]
+        print(f"comp: {label} {r['bytes_per_round']} B a round (the "
+              f"reference's price), {r['reduction']:.2f}x fewer than none; "
+              f"final loss {r['final_loss']:.4f}, val acc {r['val_acc']:.4f}"
+              f", test acc {r['test_acc']:.4f}; {COMP_ROUNDS} rounds at "
+              f"{r['rounds_per_s']:.2f} rounds/s (host clock, "
+              f"{COMP_ROUNDS // COMP_EVAL_EVERY} exact evals included); "
+              f"gcnii_layer_cuda launches {r['launches']}")
+    gates = [("int8 cuts bytes a round >= 3x",
+              results["int8"]["reduction"] >= 3.0),
+             ("topk_ef_k8 cuts bytes a round >= 6x",
+              results["topk_ef_k8"]["reduction"] >= 6.0)]
+    for label, r in results.items():
+        gates.append((f"{label} final loss <= none + {COMP_LOSS_SLACK}",
+                      r["final_loss"] <= dense["final_loss"]
+                      + COMP_LOSS_SLACK))
+        gates.append((f"{label} val acc >= none - {COMP_ACC_SLACK}",
+                      r["val_acc"] >= dense["val_acc"] - COMP_ACC_SLACK))
+    failed = [g for g, ok in gates if not ok]
+    if failed:
+        raise AssertionError(f"compression gates failed: {failed}")
+    print(f"comp: gates passed ({len(gates)}): " + "; ".join(
+        g for g, _ in gates))
+    for label in ("none", "int8", "topk_ef_k8"):
+        _round_breakdown(torch, mods, trainers[label],
+                         mods["graph_agg"].gcnii_layer_cuda)
+    return results
+
+
+def _fault_replay(mods, cfg, sampler, rounds):
+    """The fault schedule replayed on the host (numpy, so exactly the
+    Trainer's draw): delivered-only bytes, and ParticipationHook's running
+    participation, catch-ups and virtual clock after ``rounds`` rounds."""
+    plans = mods["FaultSchedule"](cfg.faults, cfg.n_clients).draw_step(
+        rounds)
+    comp = mods["make_compressor"](cfg.compression)
+    bytes_ = sum(sampler.comm_bytes_per_joint_inference(
+        cfg.hidden, cfg.agg, compressor=comp, n_uploads=p.n_present)
+        for p in plans)
+    presence = 0.0
+    for p in plans:
+        presence += p.n_present / len(p.present)
+    return dict(comm_bytes=bytes_, participation=presence / rounds,
+                catch_up_rounds=sum(bool(p.catch_up) for p in plans),
+                virtual_ms=plans[-1].t_end,
+                delivered=sum(p.n_present for p in plans))
+
+
+def phase_fault_train(torch, mods, data, anchor):
+    """The hot shape under DEADLINE_FAULTS, alone and composed with int8:
+    accuracy against the fault-free anchor, bytes and participation against
+    a host replay of the same schedule."""
+    out = {}
+    for label, cc in (("deadline", None),
+                      ("deadline+int8", {"method": "int8"})):
+        cfg = _hot_config(mods, name=f"fault-{label}",
+                          faults=DEADLINE_FAULTS, compression=cc)
+        res, trainer, wall, launches = _counted_run(torch, mods, cfg, data)
+        want = _fault_replay(mods, cfg, trainer.sampler, COMP_ROUNDS)
+        last = res.history[-1]
+        got = dict(comm_bytes=res.comm_bytes,
+                   participation=last["participation"],
+                   catch_up_rounds=last["catch_up_rounds"],
+                   virtual_ms=last["virtual_ms"])
+        for k, v in got.items():
+            if v != want[k]:
+                raise AssertionError(f"{label}: {k} {v} != the host "
+                                     f"replay's {want[k]}")
+        if res.val_acc < anchor["val_acc"] - COMP_ACC_SLACK:
+            raise AssertionError(
+                f"{label}: val acc {res.val_acc:.4f} more than "
+                f"{COMP_ACC_SLACK} below the fault-free anchor "
+                f"{anchor['val_acc']:.4f}")
+        out[label] = dict(got, val_acc=res.val_acc,
+                          rounds_per_s=res.rounds_run / wall)
+        print(f"fault: {label} {COMP_ROUNDS} rounds: val acc "
+              f"{res.val_acc:.4f} (fault-free anchor "
+              f"{anchor['val_acc']:.4f}, >= anchor - {COMP_ACC_SLACK}), "
+              f"test acc {res.test_acc:.4f}, final loss "
+              f"{last['loss']:.4f}; bytes {res.comm_bytes} == the sum of the"
+              f" per-round delivered-only prices ({want['delivered']} of "
+              f"{3 * COMP_ROUNDS} uploads delivered); participation "
+              f"{got['participation']:.6f}, catch-up rounds "
+              f"{got['catch_up_rounds']}, virtual clock "
+              f"{got['virtual_ms']:.3f} ms, each == the host replay of the "
+              f"schedule; {res.rounds_run / wall:.2f} rounds/s; "
+              f"gcnii_layer_cuda launches {launches}")
+        sched = mods["FaultSchedule"](cfg.faults, cfg.n_clients)
+        _round_breakdown(torch, mods, trainer,
+                         mods["graph_agg"].gcnii_layer_cuda,
+                         faults_fn=lambda sched=sched: sched.draw_step(1))
+    return out
+
+
+def phase_resume(torch, mods, data):
+    """Faults + int8 with error feedback: 40 rounds with a checkpoint every
+    20 (a temporary directory, removed at exit), a resume to 60, and two
+    uninterrupted 60-round runs. If those two agree bitwise the resumed run
+    must equal them bitwise, else lie within their distance."""
+    import shutil
+    import tempfile
+    cfg = _hot_config(mods, name="fed-resume", faults=DEADLINE_FAULTS,
+                      compression={"method": "int8", "error_feedback": True})
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ck = cfg.with_(ckpt_dir=root, ckpt_every=RESUME_EVERY)
+        mods["Trainer"](ck.with_(rounds=RESUME_AT), data=data).run()
+        saved = sorted(p.name for p in Path(root).iterdir())
+        res, resumed, _, launches = _counted_run(torch, mods, ck, data,
+                                                 start=RESUME_AT)
+        if not (resumed.sampler_restored and resumed.fault_sched_restored):
+            raise AssertionError("the resume did not restore the sampler "
+                                 "and fault-schedule states")
+    finally:
+        shutil.rmtree(root)
+    runs = [mods["Trainer"](cfg, data=data).run() for _ in range(2)]
+    leaves = [[t.cpu() for t in mods["tree_leaves"](r.params)]
+              for r in (res, *runs)]
+    dist = lambda a, b: max(float((x - y).abs().max()) for x, y in zip(a, b))
+    between, off = dist(leaves[1], leaves[2]), dist(leaves[0], leaves[1])
+    if res.comm_bytes != runs[0].comm_bytes or \
+            runs[0].comm_bytes != runs[1].comm_bytes:
+        raise AssertionError(f"resume bytes {res.comm_bytes} vs "
+                             f"{[r.comm_bytes for r in runs]}")
+    if between == 0.0:
+        case = "the two uninterrupted runs agree bitwise"
+        if off != 0.0:
+            raise AssertionError(f"the resumed run is {off:.3e} from the "
+                                 "uninterrupted runs, which agree bitwise")
+    else:
+        case = (f"the two uninterrupted runs differ by {between:.3e} (max "
+                "abs over the parameters)")
+        if off > between:
+            raise AssertionError(f"the resumed run is {off:.3e} from an "
+                                 f"uninterrupted run, more than {between:.3e}")
+    print(f"resume: faults + int8 (error feedback) at the hot shape: "
+          f"{RESUME_AT} rounds with a checkpoint every {RESUME_EVERY} "
+          f"({', '.join(saved)}), resumed to {COMP_ROUNDS}: sampler and "
+          f"fault schedule restored; {case}; resumed vs uninterrupted max "
+          f"abs {off:.3e} ({'bitwise' if off == 0.0 else 'within'}); bytes "
+          f"{res.comm_bytes} in all three; gcnii_layer_cuda launches "
+          f"{launches} in the resumed run")
+    return dict(between=between, resumed_off=off, case=case)
+
+
+def phase_comp_serve(torch, np, mods):
+    """cora-gcnii-glasu served through each codec of SERVE_CODECS at full
+    width from seeded parameters: the cold answer bills the reference
+    session's bytes, the warm answer is bitwise the cold one at 0 bytes,
+    and the cold answer matches the CPU session's at COMP_TOL."""
+    glasu, graph_agg = mods["glasu"], mods["graph_agg"]
+    cfg = mods["get_preset"]("cora-gcnii-glasu")
+    data = mods["make_vfl_dataset"](cfg.dataset, n_clients=cfg.n_clients,
+                                    seed=cfg.seed)
+    mcfg = cfg.glasu_config(data)
+    params = glasu.init_params(torch.Generator().manual_seed(SEED), mcfg,
+                               "cpu")
+    serve = mods["ServeConfig"](max_batch=16)
+    q = np.random.default_rng(SEED).choice(data.n_nodes, size=16,
+                                           replace=False)
+    out = {}
+    for label, cc in SERVE_CODECS:
+        def session(device, cc=cc):
+            return mods["InferenceSession"](params, cfg, data, serve=serve,
+                                            compression=cc, device=device)
+        session("cuda").answer(q)                    # warm-up
+        _zero_counts(graph_agg)                          # ---- counted run
+        sess = session("cuda")
+        cold = sess.answer(q)
+        warm = sess.answer(q)
+        counts = _counts(graph_agg)                      # ---- read counts
+        launches = counts.pop("gcnii_layer_cuda")
+        if launches < mcfg.n_layers or any(counts.values()):
+            raise AssertionError(f"compressed serving ({label}): "
+                                 f"gcnii_layer_cuda {launches}, the others "
+                                 f"{counts}")
+        if cold.wire_bytes != SERVE_WIRE_BYTES[label]:
+            raise AssertionError(f"{label}: cold answer billed "
+                                 f"{cold.wire_bytes} B, the reference "
+                                 f"{SERVE_WIRE_BYTES[label]}")
+        if not cold.cold or warm.cold or warm.wire_bytes != 0 or not (
+                np.array_equal(cold.logits, warm.logits)
+                and np.array_equal(cold.per_client, warm.per_client)):
+            raise AssertionError(f"{label}: the warm answer is not bitwise "
+                                 "the cold one at 0 bytes")
+        cpu = session("cpu").answer(q)
+        np.testing.assert_allclose(cold.logits, cpu.logits, **COMP_TOL)
+        np.testing.assert_allclose(cold.per_client, cpu.per_client,
+                                   **COMP_TOL)
+        cold_ms = []
+        for _ in range(10):
+            sess.cache.clear()
+            cold_ms.append(sess.answer(q).latency_s * 1e3)
+        err = float(np.abs(cold.per_client - cpu.per_client).max())
+        out[label] = dict(wire_bytes=cold.wire_bytes, err=err,
+                          cold_ms=statistics.median(cold_ms))
+        print(f"serve-comp: cora-gcnii-glasu {label}: cold wire "
+              f"{cold.wire_bytes} B (== the reference session's bill; "
+              f"fresh rows {cold.fresh_rows}), warm 0 B and bitwise the cold"
+              f" answer; card vs CPU (plain) per-client logits max abs "
+              f"{err:.3e} (rtol=atol={COMP_TOL['atol']:.0e}); cold median "
+              f"{statistics.median(cold_ms):.3f} ms; gcnii_layer_cuda "
+              f"launches {launches} (cold, warm)")
     return out
 
 
@@ -2121,7 +2486,9 @@ def main() -> int:
               "run needs an NVIDIA GPU (CUDA)", file=sys.stderr)
         return 2
     import numpy as np
-    from repro_torch.api import Hook, Trainer, get_preset
+    from repro_torch.api import ExperimentConfig, Hook, Trainer, get_preset
+    from repro_torch.comm.compression import make_compressor
+    from repro_torch.fed.faults import FaultSchedule
     from repro_torch.core import glasu
     from repro_torch.graph import csr_plan
     from repro_torch.graph.prefetch import sample_rounds, unstack_round
@@ -2157,10 +2524,17 @@ def main() -> int:
                 make_optimizer=make_optimizer, tree_leaves=tree_leaves,
                 tree_map=tree_map, tfm=tfm, attn=attn, flash=flash,
                 make_serve_step=make_serve_step, InputShape=InputShape,
-                TokenStream=TokenStream)
+                TokenStream=TokenStream, ExperimentConfig=ExperimentConfig,
+                make_compressor=make_compressor, FaultSchedule=FaultSchedule)
     served = {kernel: phase_slice(torch, np, mods, name, kernel)
               for name, kernel in SERVE_PRESETS.items()}
     trained = phase_train(torch, mods)
+    hot_data = make_vfl_dataset(COMP_HOT["dataset"],
+                                n_clients=COMP_HOT["n_clients"], seed=SEED)
+    comp = phase_comp_train(torch, mods, hot_data)
+    phase_fault_train(torch, mods, hot_data, comp["none"])
+    phase_resume(torch, mods, hot_data)
+    phase_comp_serve(torch, np, mods)
     powerlaw = phase_powerlaw(torch, np, mods)
     lm = {"dense": phase_serve_lm(torch, mods, "dense", smollm_config(), 32),
           "glasu": phase_serve_lm(

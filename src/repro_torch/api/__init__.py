@@ -9,11 +9,12 @@ from ..serve.config import ServeConfig
 from .backends import VmappedBackend, make_backend
 from .config import ExperimentConfig, agg_layers_for_k
 from .presets import get_preset, list_presets, register_preset
-from .trainer import EarlyStopHook, EvalHook, Hook, Trainer
+from .trainer import (CheckpointHook, CommMeterHook, EarlyStopHook, EvalHook,
+                      Hook, ParticipationHook, Trainer)
 
 __all__ = [
     "CompressionConfig", "FaultConfig", "ServeConfig", "ExperimentConfig",
     "agg_layers_for_k", "get_preset", "list_presets", "register_preset",
-    "Trainer", "Hook", "EvalHook", "EarlyStopHook", "VmappedBackend",
-    "make_backend",
+    "Trainer", "Hook", "EvalHook", "EarlyStopHook", "CheckpointHook",
+    "CommMeterHook", "ParticipationHook", "VmappedBackend", "make_backend",
 ]

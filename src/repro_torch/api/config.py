@@ -11,8 +11,8 @@ package wrote and ``to_dict`` writes the same dict back.
     (``glasu_config``).
 
 What the port cannot run yet is refused where the model is bound, never
-ignored: an active ``compression``, any ``faults`` block and
-``backend="sharded"`` make ``glasu_config`` raise NotImplementedError.
+ignored: ``backend="sharded"`` makes ``glasu_config`` raise
+NotImplementedError (and ``make_backend`` refuses ``"simulation"``).
 """
 from __future__ import annotations
 
@@ -244,14 +244,6 @@ class ExperimentConfig:
     def glasu_config(self, data) -> GlasuConfig:
         """Bind to a dataset: derives d_in / n_classes, checks client counts,
         and refuses what the port does not run yet."""
-        if self.compression is not None and self.compression.active:
-            raise NotImplementedError(
-                f"ExperimentConfig {self.name!r}: compression "
-                f"{self.compression.method!r} is not ported yet")
-        if self.faults is not None:
-            raise NotImplementedError(
-                f"ExperimentConfig {self.name!r}: fault-tolerant rounds "
-                "(faults=...) are not ported yet")
         if self.backend == "sharded":
             raise NotImplementedError(
                 f"ExperimentConfig {self.name!r}: backend='sharded' is not "
@@ -270,7 +262,8 @@ class ExperimentConfig:
             gcnii_beta=self.gcnii_beta, gat_heads=self.gat_heads,
             dp_sigma=self.dp_sigma, secure_agg=self.secure_agg,
             labels_at_client=self.labels_at_client,
-            use_pallas=self.use_pallas)
+            use_pallas=self.use_pallas, compression=self.compression,
+            fault_tolerant=self.faults is not None)
 
     def sampler_config(self) -> SamplerConfig:
         return SamplerConfig(

@@ -1,26 +1,37 @@
-"""Restore the JAX package's training checkpoints into the port.
+"""Checkpointing in the JAX package's npz layout: save, restore, cleanup.
 
-The reference (``repro.core.checkpoint``) saves ``{"params", "opt_state"}``
-as ONE flat npz leaf list in ``jax.tree_util.tree_flatten`` order, beside
-the ``experiment.json`` its trainer writes. This module reads that layout
-without jax by rebuilding the flatten order itself:
+The reference (``repro.core.checkpoint``) stores a tree as ONE flat npz
+leaf list (``leaf_<i>`` plus a ``__meta__`` JSON of the count and dtypes)
+in ``jax.tree_util.tree_flatten`` order, bf16 leaves as their 16-bit
+patterns. This module writes and reads that layout without jax by
+rebuilding the flatten order itself (``repro_torch.tree``):
 
   * dict keys are sorted (``opt_state`` before ``params``; ``W`` before
-    ``a_dst`` before ``a_src`` before ``b``);
+    ``a_dst`` before ``a_src`` before ``b``; the int layer keys of the
+    error-feedback and fault sidecars numerically);
   * NamedTuple fields and lists keep their order (``AdamState(step, mu,
     nu)``, ``SGDState(step, momentum | None)``);
-  * ``None`` holds no leaf.
+  * ``None`` holds no leaf; a Python int (the optimizers' step counter) is
+    a 0-d int32 leaf, as the reference's counter is.
 
-``params_from_numpy`` is the carry-across function: it turns a reference
-parameter tree (numpy or jax array leaves, client-stacked) into the port's
-tree of torch tensors.
+So the reference restores what ``save`` writes, and ``restore`` reads what
+the reference saved: ``ckpt_<step>.npz`` (params and optimizer state) and
+its step-aligned sidecars ``comp_<step>.npz`` (error-feedback
+accumulators) and ``fault_<step>.npz`` (stale-embedding caches). Device
+tensors are copied to the host to be saved and restored onto the device of
+the tree they replace. A missing file raises FileNotFoundError; a
+truncated, garbled or mismatched one raises RuntimeError naming the file.
+
+``params_from_numpy`` turns a reference parameter tree (numpy or jax array
+leaves, client-stacked) into the port's tree of torch tensors;
+``load_for_inference`` restores the params alone for serving.
 """
 from __future__ import annotations
 
 import json
 import zipfile
 from pathlib import Path
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,11 +65,115 @@ def params_from_numpy(tree, device=None):
     return tree_map(lambda a: _to_tensor(a).to(dev), tree)
 
 
+def _to_numpy(leaf) -> np.ndarray:
+    """A leaf as the numpy array the reference stores: bf16 as uint16 bit
+    patterns, a Python int as 0-d int32."""
+    if isinstance(leaf, int):
+        return np.asarray(leaf, np.int32)
+    t = leaf.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _flatten(tree) -> Tuple[dict, str]:
+    leaves = tree_leaves(tree)
+    arrays, metas = {}, []
+    for i, leaf in enumerate(leaves):
+        arrays[f"leaf_{i}"] = _to_numpy(leaf)
+        metas.append("bfloat16" if isinstance(leaf, torch.Tensor)
+                     and leaf.dtype == torch.bfloat16
+                     else str(arrays[f"leaf_{i}"].dtype))
+    return arrays, json.dumps({"n": len(leaves), "dtypes": metas,
+                               "treedef": "repro_torch.tree flatten order"})
+
+
+def save(ckpt_dir: str, step: int, tree: Any, name: str = "ckpt") -> str:
+    """Save a tree as ``<name>_<step>.npz``. ``name="ckpt"`` is the main
+    training state and advances the LATEST pointer; other names are
+    step-aligned sidecars (``"comp"``, ``"fault"``)."""
+    path = Path(ckpt_dir)
+    path.mkdir(parents=True, exist_ok=True)
+    arrays, meta = _flatten(tree)
+    fn = path / f"{name}_{step:08d}.npz"
+    np.savez(fn, __meta__=np.frombuffer(meta.encode(), dtype=np.uint8),
+             **arrays)
+    if name == "ckpt":
+        (path / "LATEST").write_text(str(step))
+    return str(fn)
+
+
 def latest_step(ckpt_dir: str) -> Optional[int]:
     p = Path(ckpt_dir) / "LATEST"
     if not p.exists():
         return None
     return int(p.read_text().strip())
+
+
+def _open(fn: Path):
+    """The npz and its meta, or RuntimeError naming a corrupt file."""
+    try:
+        blob = np.load(fn)
+        meta = json.loads(bytes(blob["__meta__"]).decode())
+    except (zipfile.BadZipFile, OSError, ValueError, KeyError,
+            json.JSONDecodeError) as e:
+        raise RuntimeError(
+            f"corrupt checkpoint {fn}: {type(e).__name__}: {e}") from e
+    return blob, meta
+
+
+def _leaf(blob, fn: Path, i: int) -> np.ndarray:
+    try:
+        return blob[f"leaf_{i}"]
+    except (zipfile.BadZipFile, KeyError, OSError, ValueError) as e:
+        raise RuntimeError(
+            f"corrupt checkpoint {fn}: leaf_{i} unreadable: "
+            f"{type(e).__name__}: {e}") from e
+
+
+def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
+            name: str = "ckpt") -> Any:
+    """Restore into the structure of ``like`` (an example tree), each
+    tensor leaf onto the device of the leaf it replaces, an int leaf as an
+    int. A missing file raises FileNotFoundError; a truncated, garbled or
+    structurally mismatched npz (leaf count or shape) raises RuntimeError
+    naming the file."""
+    step = step if step is not None else latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    fn = Path(ckpt_dir) / f"{name}_{step:08d}.npz"
+    if not fn.exists():
+        raise FileNotFoundError(
+            f"no {name} checkpoint for step {step} in {ckpt_dir}; found: "
+            f"{sorted(f.name for f in Path(ckpt_dir).glob(f'{name}_*.npz'))}")
+    blob, meta = _open(fn)
+    like_leaves = tree_leaves(like)
+    if meta["n"] != len(like_leaves):
+        raise RuntimeError(
+            f"corrupt/mismatched checkpoint {fn}: stores {meta['n']} "
+            f"leaves, restore target has {len(like_leaves)}")
+    leaves = []
+    for i, (dt, want) in enumerate(zip(meta["dtypes"], like_leaves)):
+        arr = _leaf(blob, fn, i)
+        if isinstance(want, int):
+            leaves.append(int(arr))
+            continue
+        t = _bf16_from_bits(arr) if dt == "bfloat16" \
+            else torch.from_numpy(np.array(arr, copy=True, order="C"))
+        if tuple(t.shape) != tuple(want.shape):
+            raise RuntimeError(
+                f"corrupt/mismatched checkpoint {fn}: leaf_{i} shape "
+                f"{tuple(t.shape)} != expected {tuple(want.shape)}")
+        leaves.append(t.to(want.device))
+    return tree_unflatten(like, leaves)
+
+
+def cleanup(ckpt_dir: str, keep: int = 3):
+    """Keep the newest ``keep`` main checkpoints; the sidecars are pruned
+    by the trainer's CheckpointHook against the surviving steps."""
+    files = sorted(Path(ckpt_dir).glob("ckpt_*.npz"))
+    for f in files[:-keep]:
+        f.unlink()
 
 
 class InferenceRestore(NamedTuple):
@@ -121,13 +236,7 @@ def load_for_inference(ckpt_dir: str, step: Optional[int] = None,
     n_params = len(like_leaves)
     n_opt = 1 + OPT_STATE_COPIES[cfg.optimizer] * n_params
 
-    try:
-        blob = np.load(fn)
-        meta = json.loads(bytes(blob["__meta__"]).decode())
-    except (zipfile.BadZipFile, OSError, ValueError, KeyError,
-            json.JSONDecodeError) as e:
-        raise RuntimeError(
-            f"corrupt checkpoint {fn}: {type(e).__name__}: {e}") from e
+    blob, meta = _open(fn)
     if meta["n"] != n_opt + n_params:
         raise RuntimeError(
             f"corrupt/mismatched checkpoint {fn}: stores {meta['n']} "
@@ -137,12 +246,7 @@ def load_for_inference(ckpt_dir: str, step: Optional[int] = None,
     leaves = []
     for i, want in zip(range(n_opt, n_opt + n_params), like_leaves):
         dt = meta["dtypes"][i]
-        try:
-            arr = blob[f"leaf_{i}"]
-        except (zipfile.BadZipFile, KeyError, OSError, ValueError) as e:
-            raise RuntimeError(
-                f"corrupt checkpoint {fn}: leaf_{i} unreadable: "
-                f"{type(e).__name__}: {e}") from e
+        arr = _leaf(blob, fn, i)
         if dt == "bfloat16":
             t = _bf16_from_bits(arr)
         elif dt == "float32":

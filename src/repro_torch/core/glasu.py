@@ -19,17 +19,26 @@ Where the reference ``vmap``s ``value_and_grad`` over clients, a local step
 here runs all M trunks stacked and backpropagates the SUM of the M
 per-client losses: the stale buffers are detached and nothing in a trunk
 crosses clients, so each client's parameter slice gets exactly its own
-gradient. Compressed and fault-tolerant exchange and the sharded engine
-are not ported yet.
+gradient.
+
+The exchange at an aggregation layer takes one of four forms, as the
+reference's ``ExecPolicy`` selects them: plain mean/concat; through a wire
+codec with slot-keyed error feedback (``_compressed_aggregate``, the
+``comp_state`` carry); a deadline round that substitutes each absent
+client's cached block and aggregates with participation weights
+(``_fault_agg_math``, the ``fault_state`` carry, ``RoundFaults`` masks);
+or both composed. The sharded engine is not ported yet.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, NamedTuple, Optional, Sequence
 
 import torch
 
+from ..comm import compression
+from ..comm.compression import CompressionConfig, Compressor
 from ..device import resolve_device
 from ..graph.prefetch import unstack_round
 from ..graph.sampler import SampledBatch
@@ -57,6 +66,8 @@ class GlasuConfig:
     secure_agg: bool = False              # §3.6 SA hook (cancelling masks)
     labels_at_client: Optional[int] = None  # Appendix B.2 (Alg 5-7): one label owner
     use_pallas: bool = False              # reference knob; CUDA always uses the kernels
+    compression: Optional[CompressionConfig] = None  # wire codec at the Agg boundary
+    fault_tolerant: bool = False          # deadline rounds + stale-cache fallback
 
     def __post_init__(self):
         if self.agg_layers:
@@ -64,6 +75,21 @@ class GlasuConfig:
                 "prediction layer input must be aggregated (paper §3.1)"
         if self.agg == "concat":
             assert self.backbone == "gcn", "concat aggregation implemented for GCN"
+        if self.compression is not None and self.compression.active:
+            assert not self.secure_agg, \
+                "secure_agg masks cancel only exactly; quantized/sparsified " \
+                "uploads break the pairwise cancellation (disable one)"
+        if self.fault_tolerant:
+            assert self.agg_layers, \
+                "fault tolerance shapes the aggregation exchange; a " \
+                "standalone run has nothing to be tolerant about"
+            assert not self.secure_agg and self.dp_sigma == 0.0, \
+                "the §3.6 privacy hooks assume every round's uploads are " \
+                "fresh; cached substitutes break mask cancellation / the " \
+                "noise accounting — disable privacy hooks or faults"
+            assert self.labels_at_client is None, \
+                "labels_at_client (Alg 6) needs the owner's upload every " \
+                "round; not supported with fault injection"
 
     def layer_in_dim(self, l: int) -> int:
         """Input width of layer l (concat widens post-aggregation layers)."""
@@ -174,18 +200,22 @@ def _aggregate(cfg: GlasuConfig, h_plus, generator=None):
         return agg[None].expand(m, n, h).contiguous(), stale
     # concat: (n, M*h); stale keeps other clients' blocks (own block zeroed)
     agg = uploads.permute(1, 0, 2).reshape(n, m * h)
-    own_block = torch.eye(m, dtype=h_plus.dtype, device=h_plus.device)
-    blockmask = torch.repeat_interleave(1.0 - own_block, h, dim=1)  # (M, M*h)
-    stale = agg[None] * blockmask[:, None, :]
-    return agg[None].expand(m, n, m * h).contiguous(), stale
+    return agg[None].expand(m, n, m * h).contiguous(), _concat_stale(cfg, agg)
 
 
-def _combine_with_stale(cfg: GlasuConfig, stale_l, h_plus, clients):
+def _combine_with_stale(cfg: GlasuConfig, stale_l, h_plus, clients, w=None,
+                        denom=None):
     """Client-side Agg(H_{-m} (stale), H_m^{+} (fresh)) — Alg 4 line 6 —
     for the stacked ``clients`` (their global indices: concat places each
-    client's fresh block at its own position)."""
+    client's fresh block at its own position).
+
+    ``w`` / ``denom`` carry a fault-tolerant round's participation weights
+    of the stacked clients, (k,), and the weighted mean's denominator;
+    ``None`` divides by M."""
+    if w is not None:
+        h_plus = w[:, None, None] * h_plus
     if cfg.agg == "mean":
-        return stale_l + h_plus / cfg.n_clients
+        return stale_l + h_plus / (cfg.n_clients if w is None else denom)
     k, n, h = h_plus.shape
     onehot = torch.eye(cfg.n_clients, dtype=h_plus.dtype,
                        device=h_plus.device)[clients]          # (k, M)
@@ -193,29 +223,245 @@ def _combine_with_stale(cfg: GlasuConfig, stale_l, h_plus, clients):
     return stale_l + own.reshape(k, n, cfg.n_clients * h)
 
 
+def _concat_stale(cfg: GlasuConfig, agg):
+    """Concat Extract: every client's copy of the (n, M*h) aggregate with
+    its own block zeroed, (M, n, M*h)."""
+    m = cfg.n_clients
+    own_block = torch.eye(m, dtype=agg.dtype, device=agg.device)
+    blockmask = torch.repeat_interleave(1.0 - own_block, agg.shape[-1] // m,
+                                        dim=1)                  # (M, M*h)
+    return agg[None] * blockmask[:, None, :]
+
+
+# ------------------------------------------------------ compressed exchange
+def init_comp_state(cfg: GlasuConfig, layer_sizes: Sequence[int],
+                    compressor: Optional[Compressor] = None):
+    """Error-feedback accumulators for the compressed embedding exchange.
+
+    ``None`` when compression is off, ``{}`` for a codec without error
+    feedback, else per aggregation layer l the uplink accumulator
+    ``"up"`` (client-resident, (M, n_{l+1}, hidden)) and the downlink one
+    ``"down"`` (server-resident, (n_{l+1}, h_agg)), zeros on the host (the
+    backend moves them to the batches' device). ``layer_sizes`` is the
+    sampler's static node-set plan (length L+1).
+    """
+    comp = compressor if compressor is not None else \
+        compression.make_compressor(cfg.compression)
+    if comp is None:
+        return None
+    if not comp.error_feedback:
+        return {}
+    down_h = cfg.hidden * (cfg.n_clients if cfg.agg == "concat" else 1)
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32)
+    return {l: {"up": zeros(cfg.n_clients, layer_sizes[l + 1], cfg.hidden),
+                "down": zeros(layer_sizes[l + 1], down_h)}
+            for l in cfg.agg_layers}
+
+
+def _payload_msg_bytes(payload, lead_dims: int) -> int:
+    """Wire size of ONE message of a payload whose tensors carry
+    ``lead_dims`` leading batch axes (0: the payload is one message)."""
+    return sum(math.prod(t.shape[lead_dims:]) * t.element_size()
+               for t in payload.values())
+
+
+def _compressed_aggregate(cfg: GlasuConfig, comp: Compressor, h_plus, ef_l,
+                          generator=None, *, cache_l=None,
+                          faults: Optional["RoundFaults"] = None):
+    """Server Agg (§3.1) with wire compression on both legs.
+
+    ``h_plus``: (M, n, h) fresh uploads; ``ef_l``: the layer's
+    error-feedback entry ``{"up", "down"}`` or ``None``. Protocol, as the
+    reference's: client m adds DP noise (drawn from ``generator``) and its
+    residual, encodes and uploads; the server decodes, aggregates the
+    DEQUANTIZED blocks, adds its residual, encodes and broadcasts; client m
+    decodes, subtracts its own dequantized upload (Extract) and continues
+    with Agg(H_{-m}, H_m^+).
+
+    Composed with faults (``cache_l`` / ``faults``): the server keeps each
+    client's last DELIVERED decoded block, (M, n, h), substitutes it for
+    absent clients and aggregates with the round's weights; an absent
+    client's residual is frozen, not decayed.
+
+    Returns ``(h, stale, new_ef_l, new_cache_l, denom)``; ``new_ef_l`` is
+    ``None`` iff ``ef_l`` is, ``new_cache_l`` / ``denom`` are ``None``
+    without faults.
+    """
+    m = cfg.n_clients
+    uploads = h_plus
+    if cfg.dp_sigma > 0.0 and generator is not None:
+        uploads = uploads + cfg.dp_sigma * torch.randn(
+            h_plus.shape, generator=generator, dtype=h_plus.dtype,
+            device=h_plus.device)
+    ef_up = ef_l["up"] if ef_l is not None else None
+    up_in = uploads if ef_up is None else uploads + ef_up
+    up_hat = comp.decode(comp.encode(up_in), h_plus.shape[-1])   # at server
+    n, h = up_hat.shape[1], up_hat.shape[2]
+
+    if faults is None:
+        # slot-keyed accumulators while the node set changes every round:
+        # the carried residual is decayed (CompressionConfig.ef_decay)
+        new_ef_up = None if ef_up is None else \
+            comp.ef_decay * (up_in - up_hat)
+        new_cache_l = denom = w = None
+        eff = up_hat
+        if cfg.agg == "mean":
+            agg = torch.mean(up_hat, dim=0)                   # (n, h)
+        else:
+            agg = up_hat.permute(1, 0, 2).reshape(n, m * h)
+    else:
+        present = faults.present[:, None, None] > 0
+        # absent clients never transmitted: their residual is frozen
+        new_ef_up = None if ef_up is None else torch.where(
+            present, comp.ef_decay * (up_in - up_hat), ef_up)
+        # server view: decoded fresh block where delivered, cache elsewhere
+        eff = torch.where(present, up_hat, cache_l)
+        new_cache_l = eff
+        w = faults.weight.to(up_hat.dtype)
+        w3 = w[:, None, None]
+        if cfg.agg == "mean":
+            denom = torch.clamp(torch.sum(faults.weight),
+                                min=1.0).to(up_hat.dtype)
+            agg = torch.sum(w3 * eff, dim=0) / denom
+        else:
+            denom = torch.ones((), dtype=up_hat.dtype, device=up_hat.device)
+            agg = (w3 * eff).permute(1, 0, 2).reshape(n, m * h)
+
+    ef_down = ef_l["down"] if ef_l is not None else None
+    _, down_hat, new_ef_down = compression.roundtrip_with_ef(
+        comp, agg, ef_down)                                    # broadcast
+
+    if cfg.agg == "mean":
+        if faults is None:
+            stale = down_hat[None] - eff / m                   # Extract
+        else:
+            stale = down_hat[None] - w[:, None, None] * eff / denom
+    else:
+        stale = _concat_stale(cfg, down_hat)
+    h_out = _combine_with_stale(cfg, stale, h_plus, list(range(m)), w=w,
+                                denom=denom)
+    new_ef_l = None if ef_l is None else {"up": new_ef_up,
+                                          "down": new_ef_down}
+    return h_out, stale, new_ef_l, new_cache_l, denom
+
+
+# ------------------------------------------------- fault-tolerant exchange
+class RoundFaults(NamedTuple):
+    """Device-side view of one round's fault draw (``fed.faults.RoundPlan``):
+    two (M,) float32 tensors; a K-round step's carry (K, M)."""
+    present: Any      # 1.0 = the client's upload arrived before the deadline
+    weight: Any       # 1.0 = fresh-or-valid-cache block enters the aggregate
+
+
+def init_fault_state(cfg: GlasuConfig, layer_sizes: Sequence[int]):
+    """Stale-embedding cache for the fault-tolerant exchange: ``None`` when
+    fault tolerance is off, else per aggregation layer the last delivered
+    upload stack, slot-keyed (M, n_{l+1}, hidden), zeros on the host. A
+    never-delivered client's slot carries weight 0 and is never read."""
+    if not cfg.fault_tolerant:
+        return None
+    return {l: torch.zeros(cfg.n_clients, layer_sizes[l + 1], cfg.hidden,
+                           dtype=torch.float32)
+            for l in cfg.agg_layers}
+
+
+def _fault_agg_math(cfg: GlasuConfig, uploads, weight):
+    """Weighted server Agg over the effective (fresh-or-cached) (M, n, h)
+    uploads with (M,) participation weights: ``(h, stale, denom)`` with
+    ``_aggregate``'s shapes. ``denom`` is cast to the uploads' dtype once;
+    an all-zero weight row divides by 1. Concat zeroes a zero-weight block
+    in place (no renormalization across the width)."""
+    m, n, h = uploads.shape
+    w = weight[:, None, None].to(uploads.dtype)
+    if cfg.agg == "mean":
+        denom = torch.clamp(torch.sum(weight), min=1.0).to(uploads.dtype)
+        agg = torch.sum(w * uploads, dim=0) / denom           # (n, h)
+        stale = agg[None] - w * uploads / denom
+        return agg[None].expand(m, n, h).contiguous(), stale, denom
+    denom = torch.ones((), dtype=uploads.dtype, device=uploads.device)
+    agg = (w * uploads).permute(1, 0, 2).reshape(n, m * h)
+    return agg[None].expand(m, n, m * h).contiguous(), \
+        _concat_stale(cfg, agg), denom
+
+
 # ------------------------------------------------------------------ Alg 3
-def joint_inference(params, batch: SampledBatch, cfg: GlasuConfig,
-                    generator=None):
-    """Alg 3: full split-model forward with server aggregation at l in I
-    (JointInference with Extract). Returns ``(logits (M, S, C), stale
-    {l: (M, n_{l+1}, h_agg)})``, both outside any autograd graph;
-    ``generator`` feeds the §3.6 hooks."""
+def _joint_inference_engine(params, batch: SampledBatch, cfg: GlasuConfig,
+                            comp: Optional[Compressor] = None,
+                            generator=None, comp_state=None,
+                            fault_state=None,
+                            faults: Optional[RoundFaults] = None):
+    """Alg 3 (JointInference with Extract) for every exchange form: plain,
+    compressed (``comp``), fault-tolerant (``faults``) or both.
+
+    Returns ``(logits, stale, new_comp_state, new_fault_state, denom)``,
+    all outside any autograd graph; the two carries are ``{}`` when their
+    form is off, ``denom`` is the fault aggregation's denominator (``None``
+    without faults). Fault rounds never draw from ``generator``.
+    """
     rows = torch.arange(cfg.n_clients, device=batch.feats.device)[:, None]
+    if faults is not None:
+        generator = None
+    stale: Dict[int, Any] = {}
+    new_comp: Dict[int, Any] = {}
+    new_cache: Dict[int, Any] = {}
+    denom = None
     with torch.no_grad():
         h = _linear(params["inp"], batch.feats)
         h0 = h
-        stale: Dict[int, Any] = {}
         for l in range(cfg.n_layers):
             layer = _client_layer(cfg, l)
             h_plus = layer(params["layers"][l], h, h0, batch.gather_idx[l],
                            batch.gather_mask[l])
             h0 = h0[rows, batch.self_pos[l].long()]
-            if l in cfg.agg_layers:
-                h, stale[l] = _aggregate(cfg, h_plus, generator)
-            else:
+            if l not in cfg.agg_layers:
                 h = h_plus
+            elif comp is not None:
+                ef_l = comp_state.get(l) if comp_state else None
+                cache_l = fault_state[l] if faults is not None else None
+                h, stale[l], new_ef, cache, d = _compressed_aggregate(
+                    cfg, comp, h_plus, ef_l, generator, cache_l=cache_l,
+                    faults=faults)
+                if new_ef is not None:
+                    new_comp[l] = new_ef
+                if faults is not None:
+                    new_cache[l], denom = cache, d
+            elif faults is not None:
+                # fresh where delivered, staleness-bounded cache elsewhere
+                eff = torch.where(faults.present[:, None, None] > 0, h_plus,
+                                  fault_state[l])
+                new_cache[l] = eff
+                h, stale[l], denom = _fault_agg_math(cfg, eff, faults.weight)
+            else:
+                h, stale[l] = _aggregate(cfg, h_plus, generator)
         logits = _linear(params["cls"], h)
-    return logits, stale
+    return logits, stale, new_comp, new_cache, denom
+
+
+def joint_inference(params, batch: SampledBatch, cfg: GlasuConfig,
+                    generator=None, compressor: Optional[Compressor] = None,
+                    comp_state=None):
+    """Alg 3: full split-model forward with server aggregation at l in I.
+    Returns ``(logits (M, S, C), stale {l: (M, n_{l+1}, h_agg)})``, both
+    outside any autograd graph; ``generator`` feeds the §3.6 hooks. With a
+    ``compressor`` the exchange runs through the wire codec and the updated
+    error-feedback state is returned third."""
+    logits, stale, new_state, _, _ = _joint_inference_engine(
+        params, batch, cfg, compressor, generator, comp_state)
+    if compressor is None:
+        return logits, stale
+    return logits, stale, new_state
+
+
+def fault_joint_inference(params, batch: SampledBatch, cfg: GlasuConfig,
+                          fault_state, faults: RoundFaults):
+    """Alg 3 under deadline-based partial participation: the server
+    aggregates the uploads that arrived (``faults.present``), substitutes
+    each absent client's cached block and excludes aged-out blocks
+    (``faults.weight`` 0). Returns ``(logits, stale, new_fault_state,
+    denom)``."""
+    logits, stale, _, new_cache, denom = _joint_inference_engine(
+        params, batch, cfg, fault_state=fault_state, faults=faults)
+    return logits, stale, new_cache, denom
 
 
 # ------------------------------------------------------------------ Alg 4
@@ -230,15 +476,18 @@ def _client_slice(batch: SampledBatch, m: int) -> SampledBatch:
 
 
 def _client_trunk(cfg: GlasuConfig, params, batch: SampledBatch, stale,
-                  clients=None, return_hidden: bool = False):
+                  clients=None, return_hidden: bool = False, fault_w=None,
+                  fault_denom=None):
     """The stacked clients' pass through all layers, aggregating via stale
     buffers (LocalUpdate, Alg 4): server aggregation is replaced by the
     stored H_{-m} plus the client's fresh representation.
 
     ``params``, ``batch`` and ``stale`` hold the same k clients on their
     leading axis, whose global indices are ``clients`` (default: all M).
-    Returns the (k, S, C) logits, or the (k, S, h_agg) input of the
-    classifier with ``return_hidden``.
+    On a fault-tolerant round ``fault_w`` (k,) and ``fault_denom`` weight
+    each client's fresh block as the server weighted it. Returns the (k,
+    S, C) logits, or the (k, S, h_agg) input of the classifier with
+    ``return_hidden``.
     """
     if clients is None:
         clients = list(range(cfg.n_clients))
@@ -251,7 +500,8 @@ def _client_trunk(cfg: GlasuConfig, params, batch: SampledBatch, stale,
                        batch.gather_mask[l])
         h0 = h0[rows, batch.self_pos[l].long()]
         if l in cfg.agg_layers:
-            h = _combine_with_stale(cfg, stale[l], h_plus, clients)
+            h = _combine_with_stale(cfg, stale[l], h_plus, clients,
+                                    w=fault_w, denom=fault_denom)
         else:
             h = h_plus
     if return_hidden:
@@ -267,10 +517,11 @@ def _nll(logits, labels):
 
 
 def client_loss(params, batch: SampledBatch, stale, cfg: GlasuConfig,
-                clients=None):
+                clients=None, fault_w=None, fault_denom=None):
     """Each stacked client's local objective (Alg 4 line 11) with its stale
     buffers fixed: (k,) losses."""
-    return _nll(_client_trunk(cfg, params, batch, stale, clients),
+    return _nll(_client_trunk(cfg, params, batch, stale, clients,
+                              fault_w=fault_w, fault_denom=fault_denom),
                 batch.labels)
 
 
@@ -292,7 +543,7 @@ def label_owner_grad(params, batch: SampledBatch, stale, cfg: GlasuConfig):
 
 def local_update_steps(params, opt_state, batch: SampledBatch, stale,
                        cfg: GlasuConfig, optimizer: opt_lib.Optimizer,
-                       g_hl=None):
+                       g_hl=None, fault_w=None, fault_denom=None):
     """Q iterations of Alg 4 (same mini-batch, stale H_{-m}): all M trunks
     stacked, one kernel launch per layer, the SUM of the per-client losses
     backpropagated (each client gets exactly its own gradient) and their
@@ -301,7 +552,9 @@ def local_update_steps(params, opt_state, batch: SampledBatch, stale,
     With ``labels_at_client`` set (Appendix B.2, Alg 7) only the owner
     evaluates the real loss; every other client trains on the surrogate
     <g_HL, H_m[L]>, with ``g_hl`` held constant, whose gradient equals the
-    chain-rule product in eq. (3).
+    chain-rule product in eq. (3). On a fault-tolerant round ``fault_w``
+    (M,) and ``fault_denom`` weight each client's fresh block in its
+    combine as the server weighted it in the aggregate.
     """
     stale = {l: v.detach() for l, v in stale.items()}
     losses = []
@@ -310,7 +563,8 @@ def local_update_steps(params, opt_state, batch: SampledBatch, stale,
         p = tree_unflatten(params, leaves)
         with torch.enable_grad():
             if cfg.labels_at_client is None:
-                per = client_loss(p, batch, stale, cfg)
+                per = client_loss(p, batch, stale, cfg, fault_w=fault_w,
+                                  fault_denom=fault_denom)
             else:
                 h_l = _client_trunk(cfg, p, batch, stale, return_hidden=True)
                 own = _nll(_linear(p["cls"], h_l), batch.labels)
@@ -331,43 +585,92 @@ def local_update_steps(params, opt_state, batch: SampledBatch, stale,
 
 
 # ------------------------------------------------------------------ Alg 1
-def _round_body(cfg: GlasuConfig, optimizer: opt_lib.Optimizer, params,
-                opt_state, batch: SampledBatch, generator=None):
-    """One GLASU round (Alg 1 body): JointInference + Q LocalUpdates."""
+def _round_body(cfg: GlasuConfig, optimizer: opt_lib.Optimizer,
+                comp: Optional[Compressor], params, opt_state,
+                batch: SampledBatch, generator=None, comp_state=None,
+                fault_state=None, faults: Optional[RoundFaults] = None):
+    """One GLASU round (Alg 1 body): JointInference + Q LocalUpdates.
+    Returns ``(params, opt_state, comp_state, fault_state, losses (Q,))``;
+    a carry whose exchange form is off passes through as given."""
+    fault_w = fault_denom = None
     if cfg.agg_layers:
-        _, stale = joint_inference(params, batch, cfg, generator)
+        _, stale, new_comp, new_cache, denom = _joint_inference_engine(
+            params, batch, cfg, comp, generator, comp_state, fault_state,
+            faults)
+        if comp is not None:
+            comp_state = new_comp
+        if faults is not None:
+            fault_state, fault_w, fault_denom = new_cache, faults.weight, denom
     else:
         stale = {}          # standalone: no communication, no stale buffers
     g_hl = None
     if cfg.labels_at_client is not None:
         g_hl = label_owner_grad(params, batch, stale, cfg)
-    return local_update_steps(params, opt_state, batch, stale, cfg,
-                              optimizer, g_hl=g_hl)
+    params, opt_state, losses = local_update_steps(
+        params, opt_state, batch, stale, cfg, optimizer, g_hl=g_hl,
+        fault_w=fault_w, fault_denom=fault_denom)
+    return params, opt_state, comp_state, fault_state, losses
+
+
+def _carries(cfg: GlasuConfig):
+    """``(codec, split, join)`` for the carries a round threads (the
+    reference's ``_policy_arity``): each active carry adds one state
+    argument and one result, and faults append the round's ``RoundFaults``
+    argument. ``split(args)`` reads ``([comp_state,] [fault_state,] batch,
+    generator=None[, faults])``; ``join`` drops the inactive carries from
+    ``(params, opt_state, comp_state, fault_state, losses)``."""
+    comp = compression.make_compressor(cfg.compression)
+    has_c, has_f = comp is not None, cfg.fault_tolerant
+
+    def split(args):
+        args = list(args)
+        cs = args.pop(0) if has_c else None
+        fs = args.pop(0) if has_f else None
+        batch = args.pop(0)
+        gen = args.pop(0) if args else None
+        return cs, fs, batch, gen, args.pop(0) if has_f else None
+
+    def join(p, s, cs, fs, losses):
+        return (p, s) + ((cs,) if has_c else ()) + \
+            ((fs,) if has_f else ()) + (losses,)
+    return comp, split, join
 
 
 def make_round_fn(cfg: GlasuConfig, optimizer: opt_lib.Optimizer):
-    """One GLASU round: ``(params, opt_state, batch, generator=None) ->
-    (params, opt_state, losses (Q,))``. ``generator`` feeds the §3.6 hooks
-    (unused when they are off)."""
-    def round_fn(params, opt_state, batch, generator=None):
-        return _round_body(cfg, optimizer, params, opt_state, batch,
-                           generator)
+    """One GLASU round over the carry layout of ``cfg``, as the reference's
+    ``make_round_fn``: ``(params, opt_state, [comp_state,] [fault_state,]
+    batch, generator=None[, faults]) -> (params, opt_state, [comp_state,]
+    [fault_state,] losses (Q,))`` — ``cfg.compression`` threads the
+    error-feedback carry, ``cfg.fault_tolerant`` the stale-embedding cache
+    and the round's ``RoundFaults``. ``generator`` feeds the §3.6 hooks
+    (unused when they are off, and by fault rounds)."""
+    comp, split, join = _carries(cfg)
+
+    def round_fn(params, opt_state, *args):
+        cs, fs, batch, gen, faults = split(args)
+        return join(*_round_body(cfg, optimizer, comp, params, opt_state,
+                                 batch, gen, cs, fs, faults))
     return round_fn
 
 
 def make_multi_round_fn(cfg: GlasuConfig, optimizer: opt_lib.Optimizer,
                         rounds_per_step: Optional[int] = None):
     """K GLASU rounds per call over round-stacked batches (every leaf has a
-    leading round axis K; ``graph.prefetch.stack_rounds``): ``(params,
-    opt_state, batches, generators=None) -> (params, opt_state, losses
-    (K, Q))``, the per-round rows of the reference's scan. ``generators``
-    is None or one per round.
+    leading round axis K; ``graph.prefetch.stack_rounds``), with
+    ``make_round_fn``'s carry layout: ``(params, opt_state, [comp_state,]
+    [fault_state,] batches, generators=None[, faults]) -> (params,
+    opt_state, [comp_state,] [fault_state,] losses (K, Q))``, the per-round
+    rows of the reference's scan. ``generators`` is None or one per round;
+    ``faults`` is a ``RoundFaults`` of (K, M) tensors.
 
     ``rounds_per_step`` is an optional hint: a batch stack whose leading
     axis disagrees is rejected loudly instead of running a different
     number of rounds.
     """
-    def step_fn(params, opt_state, batches, generators=None):
+    comp, split, join = _carries(cfg)
+
+    def step_fn(params, opt_state, *args):
+        cs, fs, batches, generators, faults = split(args)
         k = batches.labels.shape[0]
         if rounds_per_step is not None and k != rounds_per_step:
             raise ValueError(
@@ -376,30 +679,31 @@ def make_multi_round_fn(cfg: GlasuConfig, optimizer: opt_lib.Optimizer,
         losses = []
         for i in range(k):
             gen = generators[i] if generators is not None else None
-            params, opt_state, q = _round_body(
-                cfg, optimizer, params, opt_state, unstack_round(batches, i),
-                gen)
+            f = None if faults is None else \
+                RoundFaults(faults.present[i], faults.weight[i])
+            params, opt_state, cs, fs, q = _round_body(
+                cfg, optimizer, comp, params, opt_state,
+                unstack_round(batches, i), gen, cs, fs, f)
             losses.append(q)
-        return params, opt_state, torch.stack(losses)
+        return join(params, opt_state, cs, fs, torch.stack(losses))
     return step_fn
 
 
 # ------------------------------------------------------------------- serving
 def serve_forward(params, batch: SampledBatch, cfg: GlasuConfig,
-                  compressor=None,
+                  compressor: Optional[Compressor] = None,
                   cache_inject: Optional[Dict[int, Any]] = None):
     """Cross-client forward for one served query plan.
 
-    ``cache_inject`` maps aggregation layer l to ``(keep, rows)``: ``keep``
-    is a float (n_{l+1},) mask (1 = use the cached aggregate) and ``rows``
-    the (M, n_{l+1}, h_agg) cached per-client stacks. Returns ``(h,
-    aggs)``: the final (M, n_L, h_agg) representation the classifier
-    consumes, and the post-injection aggregate stacks ``{l: (M, n_{l+1},
-    h_agg)}`` the session reads its cache fills from.
+    ``compressor`` runs each aggregation through the wire codec (no
+    error-feedback carry: queries are stateless). ``cache_inject`` maps
+    aggregation layer l to ``(keep, rows)``: ``keep`` is a float (n_{l+1},)
+    mask (1 = use the cached aggregate) and ``rows`` the (M, n_{l+1},
+    h_agg) cached per-client stacks. Returns ``(h, aggs)``: the final (M,
+    n_L, h_agg) representation the classifier consumes, and the
+    post-injection aggregate stacks ``{l: (M, n_{l+1}, h_agg)}`` the
+    session reads its cache fills from.
     """
-    if compressor is not None:
-        raise NotImplementedError(
-            "compressed exchange is not ported yet (compressor must be None)")
     m = cfg.n_clients
     rows = torch.arange(m, device=batch.feats.device)[:, None]
     h = _linear(params["inp"], batch.feats)
@@ -411,7 +715,10 @@ def serve_forward(params, batch: SampledBatch, cfg: GlasuConfig,
                        batch.gather_mask[l])
         h0 = h0[rows, batch.self_pos[l].long()]
         if l in cfg.agg_layers:
-            h, _ = _aggregate(cfg, h_plus)
+            if compressor is None:
+                h, _ = _aggregate(cfg, h_plus)
+            else:
+                h = _compressed_aggregate(cfg, compressor, h_plus, None)[0]
             if cache_inject is not None and l in cache_inject:
                 keep, cached = cache_inject[l]
                 h = torch.where(keep[None, :, None] > 0, cached, h)

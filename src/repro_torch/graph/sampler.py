@@ -250,17 +250,34 @@ class GlasuSampler:
             labels=np.broadcast_to(np.int32(0), (self.cfg.batch_size,)),
             self_pos=sp)
 
-    def comm_bytes_per_joint_inference(self, hidden: int,
-                                       agg: str = "mean") -> int:
+    def comm_bytes_per_joint_inference(self, hidden: int, agg: str = "mean",
+                                       compressor=None,
+                                       n_uploads: int | None = None) -> int:
         """Paper cost model: per aggregation layer, every client uploads its
         (n_{l+1}, h) block and receives the aggregate back (4 B a float);
-        plus the int32 index sync of every shared node set. Compressed and
-        fault-tolerant pricing come with those slices of the port."""
+        plus the int32 index sync of every shared node set.
+
+        With a ``compressor`` (``comm.compression.Compressor``) embedding
+        messages are priced at their exact wire size; the index sync is
+        codec-independent. ``n_uploads`` (fault-tolerant rounds) prices only
+        the uploads DELIVERED by the deadline; the downlink and the index
+        sync still reach all M clients.
+        """
+        m_up = self.M if n_uploads is None else int(n_uploads)
+        if not 0 <= m_up <= self.M:
+            raise ValueError(f"n_uploads must be in [0, {self.M}], "
+                             f"got {n_uploads}")
         total = 0
         for l in self.cfg.agg_layers:
             n = self.layer_sizes[l + 1]
             down_h = hidden * (self.M if agg == "concat" else 1)
-            total += self.M * n * hidden * 4 + self.M * n * down_h * 4
+            if compressor is None:
+                up = m_up * n * hidden * 4
+                down = self.M * n * down_h * 4
+            else:
+                up = m_up * compressor.wire_bytes(n, hidden)
+                down = self.M * compressor.wire_bytes(n, down_h)
+            total += up + down
         for j in range(self.cfg.n_layers + 1):
             if self._shared(j):
                 total += 2 * self.M * self.layer_sizes[j] * 4  # index union sync

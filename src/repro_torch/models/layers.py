@@ -10,7 +10,7 @@ parameters instead (``core.checkpoint.params_from_numpy``).
 The reference's sharding shim (``shard``, ``wcol``, ``wrow``,
 ``shard_seq``) places activations and weights on a TPU mesh. The port runs
 on one device, so they are identities here; sharding across cards is
-ROADMAP Queue 1 item 7.
+ROADMAP Queue 1 item 3.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 # ----------------------------------------------------------------- sharding
 def shard(x, *spec):
-    """Identity: one device, no mesh (sharding is ROADMAP Queue 1 item 7)."""
+    """Identity: one device, no mesh (sharding is ROADMAP Queue 1 item 3)."""
     return x
 
 

@@ -31,9 +31,11 @@ bucket's level 0 holds 67600 source rows, which ``ops.graph_agg`` sends
 through the CSR segment-sum kernel.
 
 Byte accounting prices exactly the FRESH rows at each aggregation layer,
-as the reference's ``_price`` does. Only the uncompressed, single-device
-(``vmapped``) engine is ported; wire codecs, the sharded engine and the
-message-log replay raise.
+at the wire size of the session codec (``comm.compression``; float32
+without one), as the reference's ``_price`` does. A ``compression`` block
+runs each aggregation of a cold answer through that codec; a warm answer
+stays at zero bytes. Only the single-device (``vmapped``) engine is
+ported; the sharded engine and the message-log replay raise.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..comm.compression import make_compressor
 from ..core import checkpoint, glasu
 from ..core.train import _eval_neighbor_tables, _eval_tables
 from ..device import resolve_device
@@ -100,6 +103,7 @@ class InferenceSession:
                 data = make_centralized_dataset(data)
         self.data = data
         self.mcfg = config.glasu_config(data)
+        self._comp = make_compressor(self.mcfg.compression)
         self.params = checkpoint.tree_map(lambda t: t.to(self.device), params)
         self.params_version = int(params_version)
 
@@ -319,18 +323,24 @@ class InferenceSession:
         return f * valid
 
     # ----------------------------------------------------------- serving
+    def _wire(self, n: int, d: int) -> int:
+        if self._comp is None:
+            return n * d * 4
+        return self._comp.wire_bytes(n, d)
+
     def _price(self, fresh: Dict[int, int]) -> Tuple[int, int, int]:
         """(upload, broadcast, index) bytes for one query's fresh rows:
-        each client uploads its (n_fresh, hidden) float32 block, receives
-        the (n_fresh, h_agg) aggregate back, plus the int32 fresh-row ids."""
+        each client uploads its (n_fresh, hidden) block, receives the
+        (n_fresh, h_agg) aggregate back, both at the codec's wire size,
+        plus the int32 fresh-row ids."""
         m = self.mcfg
         up = down = idx = 0
         for l in m.agg_layers:
             n = fresh.get(l, 0)
             if n == 0:
                 continue
-            up += self.M * n * m.hidden * 4
-            down += self.M * n * self.h_agg * 4
+            up += self.M * self._wire(n, m.hidden)
+            down += self.M * self._wire(n, self.h_agg)
             idx += self.M * n * 4
         return up, down, idx
 
@@ -397,6 +407,7 @@ class InferenceSession:
         else:
             plan = self._build_plan(uniq, bucket, top_hit, top_rows)
             h, aggs = glasu.serve_forward(self.params, plan.batch, self.mcfg,
+                                          compressor=self._comp,
                                           cache_inject=plan.inject)
             # host roundtrip on purpose: the warm path assembles the same
             # f32 rows from cache, so both paths feed the classifier

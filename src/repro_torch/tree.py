@@ -1,11 +1,18 @@
 """Nested parameter trees: dicts, lists and tuples of tensors.
 
 The port's parameter and optimizer-state trees are plain containers
-(``{"inp", "layers": [...], "cls"}``), flattened in ``jax.tree_util``
-order: dict keys sorted, lists and tuples in order, ``None`` holds no
-leaf. The reference's checkpoint layout depends on that order.
+(``{"inp", "layers": [...], "cls"}``, ``AdamState(step, mu, nu)``),
+flattened in ``jax.tree_util`` order: dict keys sorted, lists, tuples and
+NamedTuples in order, ``None`` holds no leaf. The reference's checkpoint
+layout depends on that order.
 """
 from __future__ import annotations
+
+
+def _rebuild(t, children):
+    """A list, tuple or NamedTuple of ``t``'s type holding ``children``."""
+    return type(t)(*children) if hasattr(t, "_fields") \
+        else type(t)(children)
 
 
 def tree_leaves(tree) -> list:
@@ -26,7 +33,7 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, t) for t in tree)
+        return _rebuild(tree, [tree_map(fn, t) for t in tree])
     return fn(tree)
 
 
@@ -41,6 +48,6 @@ def tree_unflatten(like, leaves):
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
         if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
+            return _rebuild(t, [build(x) for x in t])
         return next(it)
     return build(like)

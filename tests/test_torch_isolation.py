@@ -102,16 +102,23 @@ def test_default_device_is_cuda_and_raises_without_it():
 
 
 def test_unported_training_options_raise():
+    """What the port still refuses: the simulation and sharded backends,
+    the sharded serve engine and the serving message-log replay."""
     tiny = dict(dataset="tiny", hidden=8, batch_size=8, size_cap=96)
     for name in ("simulation", "sharded"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             make_backend(name)
     with pytest.raises(ValueError, match="unknown backend"):
         make_backend("mpi")
-    with pytest.raises(NotImplementedError, match="checkpoint saving"):
-        Trainer(ExperimentConfig(ckpt_dir="ckpt", **tiny), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Trainer(ExperimentConfig(backend="sharded", **tiny), device="cpu")
+    for name in ("simulation", "sharded"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            Trainer(ExperimentConfig(backend=name, **tiny), device="cpu")
+    params = checkpoint.params_from_numpy({"W": np.ones(2, np.float32)},
+                                          "cpu")
+    for serve in ({"engine": "sharded"}, {"record_log": True}):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            InferenceSession(params, ExperimentConfig(**tiny), serve=serve,
+                             device="cpu")
     trainer = Trainer(ExperimentConfig(rounds=1, eval_every=1, **tiny),
                       device="cpu")
     assert trainer.device == torch.device("cpu")

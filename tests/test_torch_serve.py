@@ -99,10 +99,7 @@ def test_config_reads_reference_json(extra):
     assert got.with_(n_layers=3).agg_layers == ref.with_(n_layers=3).agg_layers
 
 
-@pytest.mark.parametrize("extra,what", [
-    ({"compression": {"method": "int8"}}, "compression"),
-    ({"faults": {"seed": 1}}, "fault"),
-    ({"backend": "sharded"}, "sharded")])
+@pytest.mark.parametrize("extra,what", [({"backend": "sharded"}, "sharded")])
 def test_unported_features_raise(world, extra, what):
     cfg = ExperimentConfig(**_kw(**extra))
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -117,9 +114,20 @@ def test_unported_serve_options_raise(world):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             InferenceSession(world["pt_params"], world["pt_cfg"],
                              world["pt_data"], serve=serve, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        glasu.serve_forward(world["pt_params"], None, world["pt_mcfg"],
-                            compressor=object())
+
+
+@pytest.mark.parametrize("extra", [{"compression": {"method": "int8"}},
+                                   {"faults": {"seed": 1}}])
+def test_compression_and_fault_blocks_bind(world, extra):
+    """Both blocks are ported: the model binds with them and a session
+    serves (a fault block shapes training only)."""
+    cfg = ExperimentConfig(**_kw(**extra))
+    mcfg = cfg.glasu_config(world["pt_data"])
+    assert mcfg.fault_tolerant == ("faults" in extra)
+    assert mcfg.compression == cfg.compression
+    sess = InferenceSession(world["pt_params"], cfg, world["pt_data"],
+                            device="cpu")
+    assert sess.answer([0, 1]).logits.shape[0] == 2
 
 
 @pytest.mark.parametrize("backbone", ["gcn", "gat"])
