@@ -82,6 +82,26 @@ Phases, each printing its own lines:
             cold answer bills the reference session's bytes, the warm one is
             bitwise the cold one at 0 bytes, card vs CPU at the reference's
             COMP_TOL;
+            the comp and fault phases also run the reference benches' meter
+            audits on the port: each codec's sharded bind (collectives
+            against the message log) and one simulated round agree on the
+            bytes a round (``_audit_meters``), and 4 simulated fault rounds'
+            logs price delivered and sent bytes as the analytic model
+            (``_audit_fault_meters``);
+   sim      ``cora-gcnii-glasu`` at full width on the simulation backend, 4
+            SGD rounds against the vmapped engine from the same params and
+            batches (the reference's SIM_TOL): the message log audited every
+            round at the preset's 823,680 B, M·L + Q·L GCNII launches a
+            round, rounds/s of both and a profiled round's idle share;
+   sharded  the same preset on a one-rank NCCL client mesh (one card; the
+            multi-rank collective is a CPU test over gloo; every backend,
+            trainer and session closed after it, so the one-rank group
+            is gone when the phase ends, else the run fails): 200 Trainer
+            rounds (test accuracy >= 0.95, 164,736,000 B), the recorded
+            collectives against the message log, where a round's time
+            goes, 4 SGD rounds against vmapped (SHARD_TOL), and the sharded
+            serve engine's 16-query answer cold and warm against the
+            vmapped engine's (equal bills, the record_log replay);
 6. powerlaw builds ``powerlaw-1m`` (2^20 nodes, its 268 MB feature file in
             a temporary directory removed at exit), trains
             ``powerlaw1m-gcn-glasu`` for its 50 rounds (finite losses, the
@@ -110,7 +130,9 @@ Phases, each printing its own lines:
 9. result   the empty-launch floor (one PyTorch op on a one-element
             tensor, timed as the kernels are), each graph kernel's training
             and cold-answer launches one by one beside their sums, one JSON
-            line listing every kernel, then the final JSON line.
+            line listing every kernel, a ``time:`` line (main()'s host
+            seconds, the build included, and each phase's), then the final
+            JSON line.
 
 Each path's launch counters are zeroed just before its counted run and read
 just after it: the run fails if a kernel of the path was never launched.
@@ -203,6 +225,18 @@ SERVE_CODECS = (("int8", {"method": "int8"}),
                 ("topk_ef_k8", {"method": "topk_ef", "k": 8}))
 SERVE_WIRE_BYTES = {"int8": 123_480, "topk_ef_k8": 59_976}
 COMP_TOL = dict(rtol=2e-4, atol=2e-4)
+# the simulation and sharded backends (the reference's
+# tests/test_backend_conformance.py classes): simulation vs vmapped is an
+# independent per-client implementation (SIM_TOL), sharded vs vmapped the
+# same engine over a gather (SHARD_TOL); both held on SGD rounds, as there.
+# The card holds one GPU, so the sharded phases run one NCCL rank (m_loc =
+# M); the cross-process collective is proven on the CPU (3 gloo ranks,
+# tests/test_torch_sharded.py)
+SIM_TOL = dict(rtol=2e-4, atol=2e-5)
+SHARD_TOL = dict(rtol=5e-5, atol=5e-5)
+BACKEND_PRESET = "cora-gcnii-glasu"
+SIM_ROUNDS = 4
+FAULT_AUDIT_ROUNDS = 4
 # H100 SXM peaks at its full 700 W limit (NVIDIA's data sheet): device-memory
 # rate and dense fp32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1511,6 +1545,16 @@ def phase_comp_train(torch, mods, data):
         raise AssertionError(f"compression gates failed: {failed}")
     print(f"comp: gates passed ({len(gates)}): " + "; ".join(
         g for g, _ in gates))
+    for label, cc in COMP_CODECS:
+        audited = _audit_meters(torch, mods, _hot_config(
+            mods, name=f"comm-{label}", compression=cc), data)
+        if audited != COMP_BYTES_PER_ROUND[label]:
+            raise AssertionError(f"{label}: the audited meters give "
+                                 f"{audited} B a round")
+        print(f"comp: {label} audit (benchmarks/comm_compression.py "
+              f"_audit_meters): the sharded bind's collectives == one "
+              f"simulated round's upload + broadcast payloads, both meters "
+              f"{audited} B a round")
     for label in ("none", "int8", "topk_ef_k8"):
         _round_breakdown(torch, mods, trainers[label],
                          mods["graph_agg"].gcnii_layer_cuda)
@@ -1575,6 +1619,13 @@ def phase_fault_train(torch, mods, data, anchor):
               f"{got['virtual_ms']:.3f} ms, each == the host replay of the "
               f"schedule; {res.rounds_run / wall:.2f} rounds/s; "
               f"gcnii_layer_cuda launches {launches}")
+        audited, n_present, n_att = _audit_fault_meters(torch, mods, cfg,
+                                                        data)
+        print(f"fault: {label} audit (benchmarks/fault_bench.py "
+              f"_audit_fault_meters): {FAULT_AUDIT_ROUNDS} simulated rounds, "
+              f"each message log's delivered and sent bytes == the analytic "
+              f"model ({n_present} of {n_att} attempted uploads delivered, "
+              f"{audited} B delivered)")
         sched = mods["FaultSchedule"](cfg.faults, cfg.n_clients)
         _round_breakdown(torch, mods, trainer,
                          mods["graph_agg"].gcnii_layer_cuda,
@@ -1692,6 +1743,345 @@ def phase_comp_serve(torch, np, mods):
               f"{statistics.median(cold_ms):.3f} ms; gcnii_layer_cuda "
               f"launches {launches} (cold, warm)")
     return out
+
+
+# ------------------------------------- the simulation and sharded backends
+def _sgd_rounds(torch, mods, backend, mcfg, sampler, p0, host, lr, **kw):
+    """``backend`` bound to ``mcfg`` runs the rounds of ``host`` one at a
+    time under SGD on the card from ``p0``: (params, losses (K, Q), the
+    per-round bytes, the GCNII launches, host seconds to sync)."""
+    graph_agg = mods["graph_agg"]
+    opt = mods["make_optimizer"]("sgd", lr)
+    backend.bind(mcfg, opt, sampler)
+    params = mods["tree_map"](lambda t: t.to("cuda", copy=True), p0)
+    state = opt.init(params)
+    batch = mods["batch_to_device"](host, "cuda")
+    torch.cuda.synchronize()
+    before = graph_agg.gcnii_layer_cuda.launches
+    t0 = time.perf_counter()
+    out = mods["run_step_sequential"](backend, params, state, batch, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    backend.close()
+    return (out.params, out.losses, out.comm_bytes_rounds
+            or (out.comm_bytes_round,) * host.labels.shape[0],
+            graph_agg.gcnii_layer_cuda.launches - before, wall,
+            out.message_logs)
+
+
+def _turns(torch, mods, name, first, vmapped, mcfg, sampler, p0, host, lr):
+    """Mean host seconds of ``name``'s and the vmapped backend's runs of
+    ``host``, timed in turns: ``first`` and ``vmapped`` ran already, then
+    vmapped and ``name`` once more."""
+    kw = {"device": "cuda"} if name == "sharded" else {}
+    vm2 = _sgd_rounds(torch, mods, mods["make_backend"]("vmapped"), mcfg,
+                      sampler, p0, host, lr)
+    again = _sgd_rounds(torch, mods, mods["make_backend"](name, **kw), mcfg,
+                        sampler, p0, host, lr)
+    return (first[4] + again[4]) / 2, (vmapped[4] + vm2[4]) / 2
+
+
+def _max_diff(torch, a, b):
+    return max(float((x - y).abs().max())
+               for x, y in zip(a, b)) if a else 0.0
+
+
+def _profiled_round(torch, fn):
+    """One call of ``fn`` under torch.profiler: (wall ms, device busy ms,
+    idle share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return wall_us / 1e3, busy_us / 1e3, 1 - busy_us / wall_us
+
+
+def phase_sim(torch, mods):
+    """SIM_ROUNDS rounds of BACKEND_PRESET at full width on the simulation
+    backend against the vmapped engine from the same params and batches
+    (SGD, SIM_TOL): the message log audited every round, its bytes the
+    preset's price, the GCNII launches a round (M a layer in the joint
+    inference, one in each local step), rounds/s of both and a profiled
+    simulated round's idle share."""
+    glasu, graph_agg = mods["glasu"], mods["graph_agg"]
+    cfg = mods["get_preset"](BACKEND_PRESET)
+    data = mods["make_vfl_dataset"](cfg.dataset, n_clients=cfg.n_clients,
+                                    seed=cfg.seed)
+    mcfg = cfg.glasu_config(data)
+    sampler = mods["GlasuSampler"](data, cfg.sampler_config(),
+                                   seed=cfg.seed + 11)
+    host = mods["sample_rounds"](sampler, SIM_ROUNDS)
+    p0 = glasu.init_params(torch.Generator().manual_seed(SEED + 5), mcfg,
+                           "cpu")
+    # warm-up, outside the counted run: both backends once
+    for name in ("simulation", "vmapped"):
+        _sgd_rounds(torch, mods, mods["make_backend"](name), mcfg, sampler,
+                    p0, mods["unstack_round"](host, slice(0, 1)), cfg.lr)
+    _zero_counts(graph_agg)                          # ---- counted run
+    sim = _sgd_rounds(torch, mods, mods["make_backend"]("simulation"), mcfg,
+                      sampler, p0, host, cfg.lr)
+    counts = _counts(graph_agg)                      # ---- read counts
+    vm = _sgd_rounds(torch, mods, mods["make_backend"]("vmapped"), mcfg,
+                     sampler, p0, host, cfg.lr)
+    # host time in turns (simulation, vmapped, vmapped, simulation)
+    sim_s, vm_s = _turns(torch, mods, "simulation", sim, vm, mcfg, sampler,
+                         p0, host, cfg.lr)
+    launches = counts.pop("gcnii_layer_cuda")
+    per_round = launches / SIM_ROUNDS
+    want = (mcfg.n_clients + mcfg.n_local_steps) * mcfg.n_layers
+    if per_round != want or any(counts.values()):
+        raise AssertionError(f"simulation: {per_round} gcnii_layer_cuda "
+                             f"launches a round (want {want}), the others "
+                             f"{counts}")
+    price = TRAIN_COMM_BYTES // 200
+    if set(sim[2]) != {price} or set(vm[2]) != {price}:
+        raise AssertionError(f"simulation bytes {sim[2]}, vmapped {vm[2]}, "
+                             f"the preset's price {price}")
+    if [log.total_bytes() for log in sim[5]] != list(sim[2]):
+        raise AssertionError("the message logs do not carry the audited "
+                             "bytes")
+    leaves = [mods["tree_leaves"](r[0]) for r in (sim, vm)]
+    torch.testing.assert_close(sim[1], vm[1], **SIM_TOL)
+    for a, b in zip(*leaves):
+        torch.testing.assert_close(a, b, **SIM_TOL)
+    opt = mods["make_optimizer"]("sgd", cfg.lr)
+    sb = mods["make_backend"]("simulation")
+    sb.bind(mcfg, opt, sampler)
+    batch = mods["batch_to_device"](mods["unstack_round"](host, 0), "cuda")
+    p = mods["tree_map"](lambda t: t.to("cuda"), p0)
+    wall, busy, idle = _profiled_round(
+        torch, lambda: sb.run_round(p, opt.init(p), batch))
+    n_msgs = len(sim[5][0].messages)
+    print(f"sim: {BACKEND_PRESET} at full width (M {mcfg.n_clients}, L "
+          f"{mcfg.n_layers}, hidden {mcfg.hidden}, Q {mcfg.n_local_steps}, "
+          f"layer sizes {sampler.layer_sizes}), {SIM_ROUNDS} SGD rounds: "
+          f"audited {sim[2][0]} B a round ({n_msgs} messages, == the "
+          f"vmapped meter); gcnii_layer_cuda {per_round:.0f} launches a "
+          f"round (vmapped: {mcfg.n_layers * (1 + mcfg.n_local_steps)}); "
+          f"vs vmapped losses max abs {_max_diff(torch, [sim[1]], [vm[1]]):.3e},"
+          f" params {_max_diff(torch, *leaves):.3e} (rtol "
+          f"{SIM_TOL['rtol']:.0e}, atol {SIM_TOL['atol']:.0e}); "
+          f"{SIM_ROUNDS / sim_s:.2f} rounds/s against vmapped "
+          f"{SIM_ROUNDS / vm_s:.2f} (host clock, means of two {SIM_ROUNDS}-"
+          f"round runs each, in turns); a profiled "
+          f"round: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+          f"{idle:.3f}")
+    return dict(bytes=sim[2][0], launches_per_round=per_round,
+                rounds_per_s=SIM_ROUNDS / sim_s,
+                vmapped_rounds_per_s=SIM_ROUNDS / vm_s, idle_share=idle)
+
+
+def phase_sharded(torch, np, mods):
+    """BACKEND_PRESET on a one-rank NCCL ShardedBackend: 200 Trainer rounds
+    (the train phase's accuracy and bytes), the recorded collectives
+    against the message log, SIM_ROUNDS SGD rounds against the vmapped
+    engine (SHARD_TOL), and a sharded 16-query answer cold and warm against
+    the vmapped session's (equal bills, the record_log replay)."""
+    import torch.distributed as dist
+    glasu, graph_agg = mods["glasu"], mods["graph_agg"]
+    cfg = mods["get_preset"](BACKEND_PRESET).with_(backend="sharded")
+    if TRAIN_ROUNDS is not None:
+        cfg = cfg.with_(rounds=TRAIN_ROUNDS)
+    data = mods["make_vfl_dataset"](cfg.dataset, n_clients=cfg.n_clients,
+                                    seed=cfg.seed)
+    warm = mods["Trainer"](cfg.with_(rounds=1, eval_every=1), data=data)
+    warm.run()
+    warm.close()
+    _zero_counts(graph_agg)                          # ---- counted run
+    trainer = mods["Trainer"](cfg, data=data)
+    t0 = time.perf_counter()
+    res = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts(graph_agg)                      # ---- read counts
+    launches = counts.pop("gcnii_layer_cuda")
+    be, mcfg = trainer.backend, trainer.model_cfg
+    mesh = be.mesh
+    where = (f"{mesh.size} rank ({dist.get_backend(mesh.group)}), m_loc "
+             f"{mesh.m_loc}, on {mesh.device}")
+    if (mesh.size, mesh.m_loc) != (1, mcfg.n_clients) or \
+            mesh.device.type != "cuda":
+        raise AssertionError(f"the card's client mesh is {where}")
+    if res.comm_bytes != TRAIN_COMM_BYTES or res.rounds_run != cfg.rounds:
+        raise AssertionError(f"sharded: {res.comm_bytes} B in "
+                             f"{res.rounds_run} rounds")
+    if res.test_acc < TRAIN_PRESETS[BACKEND_PRESET][1]:
+        raise AssertionError(f"sharded test accuracy {res.test_acc:.4f}")
+    if launches < 20 * cfg.rounds or any(counts.values()):
+        raise AssertionError(f"sharded: gcnii_layer_cuda {launches}, the "
+                             f"others {counts}")
+    shell = trainer.sampler.shape_shell_batch()
+    log = mods["MessageLog"]()
+    mods["log_agg_traffic"](log, shell, mcfg)
+    star = sum(r.star_bytes() for r in be.collectives)
+    if star != log.total_bytes():
+        raise AssertionError(f"collectives {star} B, the log "
+                             f"{log.total_bytes()} B")
+    print(f"sharded: {BACKEND_PRESET} on a client mesh of {where}: "
+          f"{res.rounds_run} Trainer rounds in {wall:.3f} s "
+          f"({res.rounds_run / wall:.2f} rounds/s, host clock, "
+          f"{len(res.history)} exact evals included), test acc "
+          f"{res.test_acc:.4f} (>= {TRAIN_PRESETS[BACKEND_PRESET][1]}), val "
+          f"acc {res.val_acc:.4f}, comm {res.comm_bytes} B (audited "
+          f"{be.bytes_per_round} B a round); gcnii_layer_cuda launches "
+          f"{launches}, the others {counts}")
+    print(f"sharded: collectives of one round "
+          f"{[(r.layer, r.n_rows, r.up_bytes, r.down_bytes) for r in be.collectives]}"
+          f" (layer, rows, upload B, broadcast B): {star} B == "
+          f"log_agg_traffic's uploads + broadcasts; + index sync "
+          f"{be.bytes_per_round - star} B")
+    stages = _round_breakdown(torch, mods, trainer,
+                              graph_agg.gcnii_layer_cuda)
+    trainer.close()
+
+    sampler = mods["GlasuSampler"](data, cfg.sampler_config(),
+                                   seed=cfg.seed + 13)
+    host = mods["sample_rounds"](sampler, SIM_ROUNDS)
+    p0 = glasu.init_params(torch.Generator().manual_seed(SEED + 6), mcfg,
+                           "cpu")
+    sh = _sgd_rounds(torch, mods, mods["make_backend"](
+        "sharded", device="cuda"), mcfg, sampler, p0, host, cfg.lr)
+    vm = _sgd_rounds(torch, mods, mods["make_backend"]("vmapped"), mcfg,
+                     sampler, p0, host, cfg.lr)
+    leaves = [mods["tree_leaves"](r[0]) for r in (sh, vm)]
+    torch.testing.assert_close(sh[1], vm[1], **SHARD_TOL)
+    for a, b in zip(*leaves):
+        torch.testing.assert_close(a, b, **SHARD_TOL)
+    if sh[2] != vm[2]:
+        raise AssertionError(f"sharded bytes {sh[2]}, vmapped {vm[2]}")
+    diff = _max_diff(torch, *leaves)
+    sh_s, vm_s = _turns(torch, mods, "sharded", sh, vm, mcfg, sampler, p0,
+                        host, cfg.lr)
+    print(f"sharded: {SIM_ROUNDS} SGD rounds vs vmapped from the same params "
+          f"and batches: losses max abs "
+          f"{_max_diff(torch, [sh[1]], [vm[1]]):.3e}, params {diff:.3e}"
+          f"{' (bitwise)' if diff == 0.0 else ''} (rtol=atol="
+          f"{SHARD_TOL['atol']:.0e}); {sh[3] // SIM_ROUNDS} gcnii_layer_cuda "
+          f"launches a round, as vmapped's {vm[3] // SIM_ROUNDS}; "
+          f"{SIM_ROUNDS / sh_s:.2f} rounds/s against vmapped "
+          f"{SIM_ROUNDS / vm_s:.2f} (host clock, means of two runs each, in "
+          f"turns)")
+
+    params = glasu.init_params(torch.Generator().manual_seed(SEED), mcfg,
+                               "cpu")
+    q = np.random.default_rng(SEED).choice(data.n_nodes, size=16,
+                                           replace=False)
+    answers = {}
+    for engine in ("sharded", "vmapped"):
+        sess = mods["InferenceSession"](
+            params, cfg, data, serve=mods["ServeConfig"](
+                max_batch=16, engine=engine, record_log=True))
+        if engine == "sharded":
+            sess.answer(q)                           # warm-up
+            sess.cache.clear()
+            _zero_counts(graph_agg)                  # ---- counted run
+        answers[engine] = (sess.answer(q), sess.answer(q))
+        if engine == "sharded":
+            serve_launches = _counts(graph_agg)      # ---- read counts
+        sess.close()
+    (cold, warm), (vcold, vwarm) = answers["sharded"], answers["vmapped"]
+    n_serve = serve_launches.pop("gcnii_layer_cuda")
+    if n_serve < mcfg.n_layers or any(serve_launches.values()):
+        raise AssertionError(f"sharded serving: gcnii_layer_cuda {n_serve}, "
+                             f"the others {serve_launches}")
+    bill = lambda a: (a.upload_bytes, a.broadcast_bytes, a.index_bytes)
+    if bill(cold) != bill(vcold) or cold.log.total_bytes() != \
+            cold.wire_bytes or warm.wire_bytes != 0 or not cold.cold:
+        raise AssertionError(f"sharded bills {bill(cold)} / {bill(warm)}, "
+                             f"vmapped {bill(vcold)}")
+    if not np.array_equal(cold.logits, warm.logits):
+        raise AssertionError("the sharded warm answer is not bitwise cold")
+    np.testing.assert_allclose(cold.per_client, vcold.per_client,
+                               **SHARD_TOL)
+    print(f"sharded: 16-query answer on the sharded engine: cold {bill(cold)}"
+          f" B (upload, broadcast, index) == the vmapped engine's and the "
+          f"record_log replay's {cold.log.total_bytes()} B, warm 0 B and "
+          f"bitwise cold; per-client logits vs vmapped max abs "
+          f"{np.abs(cold.per_client - vcold.per_client).max():.3e}; cold "
+          f"{cold.latency_s * 1e3:.3f} ms, warm {warm.latency_s * 1e3:.3f} "
+          f"ms; gcnii_layer_cuda launches {n_serve} (cold, warm)")
+    return dict(rounds_per_s=res.rounds_run / wall, test_acc=res.test_acc,
+                launches=launches, serve_launches=n_serve,
+                turns_rounds_per_s=SIM_ROUNDS / sh_s,
+                turns_vmapped_rounds_per_s=SIM_ROUNDS / vm_s, **stages)
+
+
+def _audit_meters(torch, mods, cfg, data):
+    """benchmarks/comm_compression.py:69 ``_audit_meters`` on the port:
+    bind the sharded backend (its bind audits the collectives against the
+    message log) and replay one simulated round; the two meters agree.
+    Returns the audited bytes a round."""
+    mcfg = cfg.glasu_config(data)
+    sampler = mods["GlasuSampler"](data, cfg.sampler_config(), seed=cfg.seed)
+    opt = cfg.make_optimizer()
+    sb = mods["make_backend"]("sharded", device="cuda")
+    sb.bind(mcfg, opt, sampler)          # raises if the meters disagree
+    mb = mods["make_backend"]("simulation")
+    mb.bind(mcfg, opt, sampler)
+    params = mods["glasu"].init_params(torch.Generator().manual_seed(
+        cfg.seed), mcfg)
+    batch = mods["batch_to_device"](sampler.sample_round(), "cuda")
+    out = mb.run_round(params, opt.init(params), batch)
+    up_down = out.message_log.total_bytes("upload") \
+        + out.message_log.total_bytes("broadcast")
+    if sum(r.star_bytes() for r in sb.collectives) != up_down:
+        raise AssertionError("collective records diverge from the simulated "
+                             "round's payloads")
+    if sb.bytes_per_round != out.comm_bytes:
+        raise AssertionError("sharded and simulation byte meters diverge")
+    sb.close()
+    return sb.bytes_per_round
+
+
+def _audit_fault_meters(torch, mods, cfg, data, rounds=FAULT_AUDIT_ROUNDS):
+    """benchmarks/fault_bench.py:71 ``_audit_fault_meters`` on the port:
+    ``rounds`` simulated fault rounds, each log's delivered and sent bytes
+    against the analytic model term by term. Returns (delivered bytes,
+    uploads delivered, uploads attempted)."""
+    mcfg = cfg.glasu_config(data)
+    sampler = mods["GlasuSampler"](data, cfg.sampler_config(), seed=cfg.seed)
+    opt = cfg.make_optimizer()
+    mb = mods["make_backend"]("simulation")
+    mb.bind(mcfg, opt, sampler)          # run_round re-audits every round
+    sched = mods["FaultSchedule"](cfg.faults, mcfg.n_clients)
+    params = mods["glasu"].init_params(torch.Generator().manual_seed(
+        cfg.seed), mcfg)
+    opt_state = opt.init(params)
+    index_sync = sum(2 * mcfg.n_clients * sampler.layer_sizes[j] * 4
+                     for j in range(mcfg.n_layers + 1) if sampler._shared(j))
+    comp = mods["make_compressor"](cfg.compression)
+    per_layer = [(sampler.layer_sizes[l + 1] * mcfg.hidden * 4,) * 2
+                 if comp is None else
+                 (comp.wire_bytes(sampler.layer_sizes[l + 1], mcfg.hidden),) * 2
+                 for l in sorted(mcfg.agg_layers)]
+    delivered = n_present = n_attempted = 0
+    for _ in range(rounds):
+        plan = sched.next_round()
+        batch = mods["batch_to_device"](sampler.sample_round(), "cuda")
+        out = mb.run_round(params, opt_state, batch, faults=plan)
+        params, opt_state = out.params, out.opt_state
+        n_att = int(plan.attempted.sum())
+        want = index_sync + sum(plan.n_present * up + mcfg.n_clients * down
+                                for up, down in per_layer)
+        sent = index_sync + sum(n_att * up + mcfg.n_clients * down
+                                for up, down in per_layer)
+        if out.message_log.total_bytes() != want:
+            raise AssertionError(f"delivered meter "
+                                 f"{out.message_log.total_bytes()} != "
+                                 f"analytic {want}")
+        if out.message_log.total_bytes(delivered_only=False) != sent:
+            raise AssertionError("sent-traffic meter disagrees with the "
+                                 "attempted uploads")
+        delivered += want
+        n_present += plan.n_present
+        n_attempted += n_att
+    return delivered, n_present, n_attempted
 
 
 def phase_powerlaw(torch, np, mods):
@@ -2342,14 +2732,15 @@ def _sums(rows):
 
 
 def phase_result(torch, graph_agg, trained, served, powerlaw, n_layers, lm,
-                 flash32k, flash_cases):
+                 flash32k, flash_cases, backends):
     """The kernels line: each kernel timed on the inputs the training path
     gave it in one joint inference (the launches of its preset's counted
     200-round run); GCNII and GAT also on one cold answer of the serving
     path; the CSR kernel on the input one cold 16-query answer of the
     million-node serving path gave it (the launches of that counted run);
     the flash kernel on the first layer's input of the counted dense
-    SmolLM-360M prefill, and at the 32k shape."""
+    SmolLM-360M prefill, and at the 32k shape. ``backends`` adds the
+    GCNII launches of the simulation and sharded phases' counted runs."""
     scope = (f"sum over the {n_layers} launches of one joint inference of a "
              "training round of {preset} (M=3, d=64, F+1=4, n_src/n_dst "
              "512/512, 512/512, 512/64, 64/16); ms, plain_ms: device time; "
@@ -2405,6 +2796,8 @@ def phase_result(torch, graph_agg, trained, served, powerlaw, n_layers, lm,
                                    ("ms", "launch_ms", "plain_ms", "bound_ms",
                                     "bound_by")},
                 serve_per_launch=serve_rows)
+        if name == "gcnii_layer":
+            entry.update(backends)
         entries.append(entry)
     launches, captured = powerlaw
     rows = _replay(torch, captured, graph_agg.graph_agg_csr_cuda,
@@ -2479,14 +2872,30 @@ def _flash_entry(torch, lm, flash32k, flash_cases):
         at_32k=flash32k, fp32_kernel=flash_cases["fp32"])
 
 
+PHASE_S = {}
+
+
+def _timed(name, fn, *args):
+    """``fn(*args)``, its host seconds kept under ``name`` for the time
+    line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[name] = PHASE_S.get(name, 0.0) + time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs an NVIDIA GPU (CUDA)", file=sys.stderr)
         return 2
     import numpy as np
-    from repro_torch.api import ExperimentConfig, Hook, Trainer, get_preset
+    from repro_torch.api import (ExperimentConfig, Hook, Trainer, get_preset,
+                                 make_backend)
+    from repro_torch.api.backends import run_step_sequential
+    from repro_torch.fed.simulation import MessageLog, log_agg_traffic
     from repro_torch.comm.compression import make_compressor
     from repro_torch.fed.faults import FaultSchedule
     from repro_torch.core import glasu
@@ -2505,15 +2914,15 @@ def main() -> int:
     from repro_torch.serve import InferenceSession, ServeConfig
     from repro_torch.tree import tree_leaves, tree_map
 
-    phase_device(torch)
-    phase_build(build)
-    phase_kernels(torch, graph_agg)
-    phase_kernels_gcn(torch, graph_agg)
-    phase_kernels_gat(torch, graph_agg)
-    phase_kernels_csr(torch, np, graph_agg, csr_plan)
-    flash_cases = phase_kernels_flash(torch, flash)
-    phase_grads(torch, ops)
-    phase_grads_csr(torch, np, ops, csr_plan)
+    _timed("device", phase_device, torch)
+    _timed("build", phase_build, build)
+    _timed("kernels", phase_kernels, torch, graph_agg)
+    _timed("kernels", phase_kernels_gcn, torch, graph_agg)
+    _timed("kernels", phase_kernels_gat, torch, graph_agg)
+    _timed("kernels", phase_kernels_csr, torch, np, graph_agg, csr_plan)
+    flash_cases = _timed("kernels", phase_kernels_flash, torch, flash)
+    _timed("kernels", phase_grads, torch, ops)
+    _timed("kernels", phase_grads_csr, torch, np, ops, csr_plan)
     mods = dict(glasu=glasu, graph_agg=graph_agg, ops=ops,
                 get_preset=get_preset, make_vfl_dataset=make_vfl_dataset,
                 make_powerlaw_dataset=make_powerlaw_dataset, Hook=Hook,
@@ -2525,26 +2934,44 @@ def main() -> int:
                 tree_map=tree_map, tfm=tfm, attn=attn, flash=flash,
                 make_serve_step=make_serve_step, InputShape=InputShape,
                 TokenStream=TokenStream, ExperimentConfig=ExperimentConfig,
-                make_compressor=make_compressor, FaultSchedule=FaultSchedule)
-    served = {kernel: phase_slice(torch, np, mods, name, kernel)
+                make_compressor=make_compressor, FaultSchedule=FaultSchedule,
+                make_backend=make_backend,
+                run_step_sequential=run_step_sequential,
+                MessageLog=MessageLog, log_agg_traffic=log_agg_traffic)
+    served = {kernel: _timed("slice", phase_slice, torch, np, mods, name,
+                             kernel)
               for name, kernel in SERVE_PRESETS.items()}
-    trained = phase_train(torch, mods)
+    trained = _timed("train", phase_train, torch, mods)
     hot_data = make_vfl_dataset(COMP_HOT["dataset"],
                                 n_clients=COMP_HOT["n_clients"], seed=SEED)
-    comp = phase_comp_train(torch, mods, hot_data)
-    phase_fault_train(torch, mods, hot_data, comp["none"])
-    phase_resume(torch, mods, hot_data)
-    phase_comp_serve(torch, np, mods)
-    powerlaw = phase_powerlaw(torch, np, mods)
-    lm = {"dense": phase_serve_lm(torch, mods, "dense", smollm_config(), 32),
-          "glasu": phase_serve_lm(
-              torch, mods, "glasu", smollm_config(
-                  glasu=GlasuSplit(n_clients=5, sync_every=2,
-                                   local_steps=1)), 16)}
-    flash32k = phase_flash_32k(torch, flash)
-    phase_result(torch, graph_agg, trained, served, powerlaw,
-                 get_preset("cora-gcnii-glasu").n_layers, lm, flash32k,
-                 flash_cases)
+    comp = _timed("comp", phase_comp_train, torch, mods, hot_data)
+    _timed("fault", phase_fault_train, torch, mods, hot_data, comp["none"])
+    _timed("resume", phase_resume, torch, mods, hot_data)
+    _timed("serve-comp", phase_comp_serve, torch, np, mods)
+    sim = _timed("sim", phase_sim, torch, mods)
+    sharded = _timed("sharded", phase_sharded, torch, np, mods)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise AssertionError("the sharded phases closed every backend, "
+                             "trainer and session, yet a default process "
+                             "group is still alive")
+    powerlaw = _timed("powerlaw", phase_powerlaw, torch, np, mods)
+    split = smollm_config(glasu=GlasuSplit(n_clients=5, sync_every=2,
+                                           local_steps=1))
+    lm = {"dense": _timed("serve", phase_serve_lm, torch, mods, "dense",
+                          smollm_config(), 32),
+          "glasu": _timed("serve", phase_serve_lm, torch, mods, "glasu",
+                          split, 16)}
+    flash32k = _timed("flash32k", phase_flash_32k, torch, flash)
+    _timed("result", phase_result, torch, graph_agg, trained, served,
+           powerlaw, get_preset("cora-gcnii-glasu").n_layers, lm, flash32k,
+           flash_cases, dict(
+               sim_launches_per_round=sim["launches_per_round"],
+               sharded_launches=sharded["launches"],
+               sharded_serve_launches=sharded["serve_launches"]))
+    print(f"time: main() ran {time.perf_counter() - t_main:.1f} s (host "
+          "clock, from its start, the build included); by phase " +
+          ", ".join(f"{k} {v:.1f}" for k, v in PHASE_S.items()) + " s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,8 @@
 from ..comm.compression import CompressionConfig
 from ..fed.faults import FaultConfig
 from ..serve.config import ServeConfig
-from .backends import VmappedBackend, make_backend
+from .backends import (ShardedBackend, SimulationBackend, VmappedBackend,
+                       make_backend)
 from .config import ExperimentConfig, agg_layers_for_k
 from .presets import get_preset, list_presets, register_preset
 from .trainer import (CheckpointHook, CommMeterHook, EarlyStopHook, EvalHook,
@@ -16,5 +17,6 @@ __all__ = [
     "CompressionConfig", "FaultConfig", "ServeConfig", "ExperimentConfig",
     "agg_layers_for_k", "get_preset", "list_presets", "register_preset",
     "Trainer", "Hook", "EvalHook", "EarlyStopHook", "CheckpointHook",
-    "CommMeterHook", "ParticipationHook", "VmappedBackend", "make_backend",
+    "CommMeterHook", "ParticipationHook", "VmappedBackend",
+    "SimulationBackend", "ShardedBackend", "make_backend",
 ]

@@ -10,9 +10,8 @@ package wrote and ``to_dict`` writes the same dict back.
   * ``d_in`` / ``n_classes`` are read off the dataset at bind time
     (``glasu_config``).
 
-What the port cannot run yet is refused where the model is bound, never
-ignored: ``backend="sharded"`` makes ``glasu_config`` raise
-NotImplementedError (and ``make_backend`` refuses ``"simulation"``).
+Every backend of the reference runs: ``"vmapped"``, ``"simulation"`` and
+``"sharded"``, with the reference's cross-field checks.
 """
 from __future__ import annotations
 
@@ -242,12 +241,8 @@ class ExperimentConfig:
         return "per_client" if self.method == "standalone" else "ensemble"
 
     def glasu_config(self, data) -> GlasuConfig:
-        """Bind to a dataset: derives d_in / n_classes, checks client counts,
-        and refuses what the port does not run yet."""
-        if self.backend == "sharded":
-            raise NotImplementedError(
-                f"ExperimentConfig {self.name!r}: backend='sharded' is not "
-                "ported yet")
+        """Bind to a dataset: derives d_in / n_classes, checks client
+        counts."""
         if data.n_clients != self.model_clients:
             raise ValueError(
                 f"ExperimentConfig {self.name!r}: mismatched n_clients — "

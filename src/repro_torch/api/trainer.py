@@ -210,7 +210,8 @@ class CheckpointHook(Hook):
     sampler's PCG64 bit state, the fault schedule's state);
     ``comp_<step>.npz`` the error-feedback accumulators and
     ``fault_<step>.npz`` the stale-embedding caches, each restored only
-    when the block that wrote it matches the current one.
+    when the block that wrote it matches the current one. Under the
+    sharded backend every rank restores and only rank 0 writes.
     """
 
     RESUME_MUTABLE = ("name", "rounds", "eval_every", "eval_table_cap",
@@ -229,13 +230,20 @@ class CheckpointHook(Hook):
     def _sidecar(self, step: int) -> Path:
         return Path(self.ckpt_dir) / f"state_{step:08d}.json"
 
+    @staticmethod
+    def _writes(trainer) -> bool:
+        """Whether this process writes: every backend but a sharded one's
+        ranks other than 0 (they hold the same gathered state)."""
+        return getattr(trainer.backend, "is_writer", True)
+
     def on_train_start(self, trainer):
         st = trainer.state
         meta = Path(self.ckpt_dir) / "experiment.json"
         step = checkpoint.latest_step(self.ckpt_dir)
         if step is None:
-            Path(self.ckpt_dir).mkdir(parents=True, exist_ok=True)
-            meta.write_text(json.dumps(trainer.cfg.to_dict(), indent=1))
+            if self._writes(trainer):
+                Path(self.ckpt_dir).mkdir(parents=True, exist_ok=True)
+                meta.write_text(json.dumps(trainer.cfg.to_dict(), indent=1))
             return
         saved_comp = saved_faults = None
         if meta.exists():
@@ -309,6 +317,8 @@ class CheckpointHook(Hook):
         trainer.fault_sched_restored = True
 
     def _save(self, trainer):
+        if not self._writes(trainer):
+            return
         st = trainer.state
         checkpoint.save(self.ckpt_dir, st.round, self._tree(st))
         comp_state = getattr(trainer.backend, "comp_state", None)
@@ -363,8 +373,12 @@ class Trainer:
         self.sampler = GlasuSampler(self.data, cfg.sampler_config(),
                                     seed=cfg.seed)
         self.optimizer = cfg.make_optimizer()
+        backend_kw = {}
+        if cfg.backend == "sharded":
+            backend_kw = {"mesh_devices": cfg.mesh_devices,
+                          "device": self.device}
         self.backend = backend if backend is not None \
-            else make_backend(cfg.backend)
+            else make_backend(cfg.backend, **backend_kw)
         self.backend.bind(self.model_cfg, self.optimizer, self.sampler)
         # host-side fault schedule (None for fault-free runs): the Trainer
         # owns the sequential draw; backends only see per-round plans
@@ -391,6 +405,14 @@ class Trainer:
         self.sampler_restored = False
         self.fault_sched_restored = False
         self.prefetch_stats: Optional[dict] = None
+
+    def close(self) -> None:
+        """Release what the backend holds across runs: the sharded
+        backend's client mesh and, with it, the one-rank process group it
+        may have built. The Trainer runs no more rounds after this."""
+        close = getattr(self.backend, "close", None)
+        if close is not None:
+            close()
 
     @staticmethod
     def _make_data(cfg: ExperimentConfig):

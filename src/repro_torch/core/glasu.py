@@ -27,7 +27,19 @@ codec with slot-keyed error feedback (``_compressed_aggregate``, the
 ``comp_state`` carry); a deadline round that substitutes each absent
 client's cached block and aggregates with participation weights
 (``_fault_agg_math``, the ``fault_state`` carry, ``RoundFaults`` masks);
-or both composed. The sharded engine is not ported yet.
+or both composed.
+
+The sharded engine is the same engine on a rank's even block of clients:
+``make_round_fn``, ``make_multi_round_fn``, ``joint_inference`` and
+``serve_forward`` take a ``mesh`` (a ``launch.mesh.ClientMesh`` over a
+``torch.distributed`` group; the reference's ``make_sharded_*`` and
+``sharded_*`` functions). At every aggregation layer the local uploads
+(or, compressed, the local wire payload) are all-gathered to the full (M,
+n, h) stack, the same ``_aggregate`` / ``_compressed_aggregate`` /
+``_fault_agg_math`` runs on it, and the rank keeps its own block; each
+collective can be described by a ``CollectiveRecord`` for the byte meter.
+Taking a rank's block of global trees and gathering results back is the
+caller's (``launch.sharding``, as the reference's shard_map specs).
 """
 from __future__ import annotations
 
@@ -266,45 +278,56 @@ def _payload_msg_bytes(payload, lead_dims: int) -> int:
 
 
 def _compressed_aggregate(cfg: GlasuConfig, comp: Compressor, h_plus, ef_l,
-                          generator=None, *, cache_l=None,
+                          generator=None, *, gather=None, i0: int = 0,
+                          record=None, layer: int = -1, cache_l=None,
                           faults: Optional["RoundFaults"] = None):
     """Server Agg (§3.1) with wire compression on both legs.
 
-    ``h_plus``: (M, n, h) fresh uploads; ``ef_l``: the layer's
-    error-feedback entry ``{"up", "down"}`` or ``None``. Protocol, as the
-    reference's: client m adds DP noise (drawn from ``generator``) and its
-    residual, encodes and uploads; the server decodes, aggregates the
-    DEQUANTIZED blocks, adds its residual, encodes and broadcasts; client m
-    decodes, subtracts its own dequantized upload (Extract) and continues
-    with Agg(H_{-m}, H_m^+).
+    ``h_plus``: (m_blk, n, h) fresh uploads — all M clients on one device,
+    or a rank's block of the sharded engine, whose global offset is ``i0``
+    and whose ``gather`` all-gathers each payload tensor along the client
+    axis. ``ef_l``: the layer's error-feedback entry ``{"up", "down"}`` or
+    ``None`` (``"up"`` holds the block's clients). Protocol, as the
+    reference's: client m adds DP noise (the global (M, n, h) draw from
+    ``generator``, sliced to the block) and its residual, encodes and
+    uploads; the server decodes, aggregates the DEQUANTIZED blocks, adds
+    its residual, encodes and broadcasts; client m decodes, subtracts its
+    own dequantized upload (Extract) and continues with Agg(H_{-m}, H_m^+).
 
     Composed with faults (``cache_l`` / ``faults``): the server keeps each
-    client's last DELIVERED decoded block, (M, n, h), substitutes it for
-    absent clients and aggregates with the round's weights; an absent
-    client's residual is frozen, not decayed.
+    client's last DELIVERED decoded block, the full (M, n, h) stack on
+    every rank, substitutes it for absent clients and aggregates with the
+    round's weights; an absent client's residual is frozen, not decayed.
 
-    Returns ``(h, stale, new_ef_l, new_cache_l, denom)``; ``new_ef_l`` is
-    ``None`` iff ``ef_l`` is, ``new_cache_l`` / ``denom`` are ``None``
-    without faults.
+    ``record`` (the byte meter's hook) receives one ``CollectiveRecord``
+    priced by the payloads' real tensors. Returns ``(h, stale, new_ef_l,
+    new_cache_l, denom)`` for the block; ``new_ef_l`` is ``None`` iff
+    ``ef_l`` is, ``new_cache_l`` / ``denom`` are ``None`` without faults.
     """
     m = cfg.n_clients
+    m_blk = h_plus.shape[0]
+    blk = lambda x: x if m_blk == m else x[i0:i0 + m_blk]
     uploads = h_plus
     if cfg.dp_sigma > 0.0 and generator is not None:
-        uploads = uploads + cfg.dp_sigma * torch.randn(
-            h_plus.shape, generator=generator, dtype=h_plus.dtype,
-            device=h_plus.device)
+        uploads = uploads + cfg.dp_sigma * blk(torch.randn(
+            (m,) + tuple(h_plus.shape[1:]), generator=generator,
+            dtype=h_plus.dtype, device=h_plus.device))
     ef_up = ef_l["up"] if ef_l is not None else None
     up_in = uploads if ef_up is None else uploads + ef_up
-    up_hat = comp.decode(comp.encode(up_in), h_plus.shape[-1])   # at server
+    payload = comp.encode(up_in)                        # client -> server
+    wire = payload if gather is None else \
+        {k: gather(v) for k, v in payload.items()}
+    up_hat = comp.decode(wire, h_plus.shape[-1])        # (M, n, h) at server
+    up_hat_blk = blk(up_hat)
     n, h = up_hat.shape[1], up_hat.shape[2]
 
     if faults is None:
         # slot-keyed accumulators while the node set changes every round:
         # the carried residual is decayed (CompressionConfig.ef_decay)
         new_ef_up = None if ef_up is None else \
-            comp.ef_decay * (up_in - up_hat)
-        new_cache_l = denom = w = None
-        eff = up_hat
+            comp.ef_decay * (up_in - up_hat_blk)
+        new_cache_l = denom = w_blk = None
+        eff_blk = up_hat_blk
         if cfg.agg == "mean":
             agg = torch.mean(up_hat, dim=0)                   # (n, h)
         else:
@@ -313,12 +336,13 @@ def _compressed_aggregate(cfg: GlasuConfig, comp: Compressor, h_plus, ef_l,
         present = faults.present[:, None, None] > 0
         # absent clients never transmitted: their residual is frozen
         new_ef_up = None if ef_up is None else torch.where(
-            present, comp.ef_decay * (up_in - up_hat), ef_up)
+            blk(present), comp.ef_decay * (up_in - up_hat_blk), ef_up)
         # server view: decoded fresh block where delivered, cache elsewhere
         eff = torch.where(present, up_hat, cache_l)
         new_cache_l = eff
-        w = faults.weight.to(up_hat.dtype)
-        w3 = w[:, None, None]
+        eff_blk = blk(eff)
+        w3 = faults.weight.to(up_hat.dtype)[:, None, None]
+        w_blk = blk(faults.weight.to(up_hat.dtype))
         if cfg.agg == "mean":
             denom = torch.clamp(torch.sum(faults.weight),
                                 min=1.0).to(up_hat.dtype)
@@ -328,17 +352,24 @@ def _compressed_aggregate(cfg: GlasuConfig, comp: Compressor, h_plus, ef_l,
             agg = (w3 * eff).permute(1, 0, 2).reshape(n, m * h)
 
     ef_down = ef_l["down"] if ef_l is not None else None
-    _, down_hat, new_ef_down = compression.roundtrip_with_ef(
+    down_payload, down_hat, new_ef_down = compression.roundtrip_with_ef(
         comp, agg, ef_down)                                    # broadcast
+    if record is not None:
+        record(CollectiveRecord(
+            layer=layer, n_clients=m, n_rows=n, width_up=h,
+            width_down=agg.shape[-1], itemsize=h_plus.element_size(),
+            up_bytes=_payload_msg_bytes(payload, 1),
+            down_bytes=_payload_msg_bytes(down_payload, 0)))
 
     if cfg.agg == "mean":
         if faults is None:
-            stale = down_hat[None] - eff / m                   # Extract
+            stale = down_hat[None] - eff_blk / m               # Extract
         else:
-            stale = down_hat[None] - w[:, None, None] * eff / denom
+            stale = down_hat[None] - w_blk[:, None, None] * eff_blk / denom
     else:
-        stale = _concat_stale(cfg, down_hat)
-    h_out = _combine_with_stale(cfg, stale, h_plus, list(range(m)), w=w,
+        stale = blk(_concat_stale(cfg, down_hat))
+    h_out = _combine_with_stale(cfg, stale, h_plus,
+                                list(range(i0, i0 + m_blk)), w=w_blk,
                                 denom=denom)
     new_ef_l = None if ef_l is None else {"up": new_ef_up,
                                           "down": new_ef_down}
@@ -385,20 +416,69 @@ def _fault_agg_math(cfg: GlasuConfig, uploads, weight):
 
 
 # ------------------------------------------------------------------ Alg 3
+class CollectiveRecord(NamedTuple):
+    """One cross-client aggregation collective, as the byte meter sees it.
+
+    ``up_bytes`` / ``down_bytes`` are the WIRE sizes of one client upload
+    and one server broadcast: ``n_rows * width * itemsize`` uncompressed,
+    read off the encoded payload's tensors under a codec (the all-gather
+    then moves the compressed representation).
+    """
+    layer: int          # aggregation layer index l
+    n_clients: int      # M (global)
+    n_rows: int         # n_{l+1} rows per upload
+    width_up: int       # per-client upload width (hidden)
+    width_down: int     # aggregate width broadcast back (hidden | M*hidden)
+    itemsize: int       # logical (pre-compression) payload dtype bytes
+    up_bytes: int       # wire bytes of ONE client upload message
+    down_bytes: int     # wire bytes of ONE broadcast message
+
+    def star_bytes(self) -> int:
+        """Bytes under the paper's client<->server star topology (§3.2):
+        M uploads + M downloads at their wire sizes."""
+        return self.n_clients * (self.up_bytes + self.down_bytes)
+
+
+def _record_dense(record, l: int, uploads, h_full):
+    """Byte-meter record of an UNCOMPRESSED aggregation collective: the
+    dense (n, h) block a message on both legs."""
+    isz = uploads.element_size()
+    record(CollectiveRecord(
+        layer=l, n_clients=uploads.shape[0], n_rows=uploads.shape[1],
+        width_up=uploads.shape[2], width_down=h_full.shape[-1],
+        itemsize=isz, up_bytes=uploads.shape[1] * uploads.shape[2] * isz,
+        down_bytes=uploads.shape[1] * h_full.shape[-1] * isz))
+
+
 def _joint_inference_engine(params, batch: SampledBatch, cfg: GlasuConfig,
                             comp: Optional[Compressor] = None,
                             generator=None, comp_state=None,
                             fault_state=None,
-                            faults: Optional[RoundFaults] = None):
+                            faults: Optional[RoundFaults] = None, *,
+                            mesh=None, record=None):
     """Alg 3 (JointInference with Extract) for every exchange form: plain,
-    compressed (``comp``), fault-tolerant (``faults``) or both.
+    compressed (``comp``), fault-tolerant (``faults``) or both — on one
+    device, or on a rank's block of clients (``mesh``, a
+    ``launch.mesh.ClientMesh``).
+
+    Sharded, ``params`` / ``batch`` / the uplink error-feedback and the
+    plain fault cache hold the rank's ``mesh.m_loc`` clients from global
+    client ``mesh.i0``; the masks ``faults``, ``generator``'s draws and the
+    composed fault cache are global. At each aggregation layer the uploads
+    (compressed: the wire payload) are all-gathered to the full stack, the
+    single-device aggregation runs on it, and the rank keeps its block.
+    ``record`` receives a ``CollectiveRecord`` a layer.
 
     Returns ``(logits, stale, new_comp_state, new_fault_state, denom)``,
     all outside any autograd graph; the two carries are ``{}`` when their
     form is off, ``denom`` is the fault aggregation's denominator (``None``
     without faults). Fault rounds never draw from ``generator``.
     """
-    rows = torch.arange(cfg.n_clients, device=batch.feats.device)[:, None]
+    gather = None if mesh is None else mesh.gather
+    i0 = 0 if mesh is None else mesh.i0
+    m_blk = batch.feats.shape[0]
+    blk = lambda x: x if gather is None else x[i0:i0 + m_blk]
+    rows = torch.arange(m_blk, device=batch.feats.device)[:, None]
     if faults is not None:
         generator = None
     stale: Dict[int, Any] = {}
@@ -419,34 +499,42 @@ def _joint_inference_engine(params, batch: SampledBatch, cfg: GlasuConfig,
                 ef_l = comp_state.get(l) if comp_state else None
                 cache_l = fault_state[l] if faults is not None else None
                 h, stale[l], new_ef, cache, d = _compressed_aggregate(
-                    cfg, comp, h_plus, ef_l, generator, cache_l=cache_l,
-                    faults=faults)
+                    cfg, comp, h_plus, ef_l, generator, gather=gather, i0=i0,
+                    record=record, layer=l, cache_l=cache_l, faults=faults)
                 if new_ef is not None:
                     new_comp[l] = new_ef
                 if faults is not None:
                     new_cache[l], denom = cache, d
-            elif faults is not None:
-                # fresh where delivered, staleness-bounded cache elsewhere
-                eff = torch.where(faults.present[:, None, None] > 0, h_plus,
-                                  fault_state[l])
-                new_cache[l] = eff
-                h, stale[l], denom = _fault_agg_math(cfg, eff, faults.weight)
             else:
-                h, stale[l] = _aggregate(cfg, h_plus, generator)
+                if faults is not None:
+                    # fresh where delivered, staleness-bounded cache elsewhere
+                    eff = torch.where(blk(faults.present)[:, None, None] > 0,
+                                      h_plus, fault_state[l])
+                    new_cache[l] = eff
+                    uploads = eff if gather is None else gather(eff)
+                    h_full, stale_full, denom = _fault_agg_math(
+                        cfg, uploads, faults.weight)
+                else:
+                    uploads = h_plus if gather is None else gather(h_plus)
+                    h_full, stale_full = _aggregate(cfg, uploads, generator)
+                if record is not None:
+                    _record_dense(record, l, uploads, h_full)
+                h, stale[l] = blk(h_full), blk(stale_full)
         logits = _linear(params["cls"], h)
     return logits, stale, new_comp, new_cache, denom
 
 
 def joint_inference(params, batch: SampledBatch, cfg: GlasuConfig,
                     generator=None, compressor: Optional[Compressor] = None,
-                    comp_state=None):
+                    comp_state=None, *, mesh=None):
     """Alg 3: full split-model forward with server aggregation at l in I.
     Returns ``(logits (M, S, C), stale {l: (M, n_{l+1}, h_agg)})``, both
     outside any autograd graph; ``generator`` feeds the §3.6 hooks. With a
     ``compressor`` the exchange runs through the wire codec and the updated
-    error-feedback state is returned third."""
+    error-feedback state is returned third. With ``mesh`` the inputs and
+    outputs hold the rank's block of clients (``_joint_inference_engine``)."""
     logits, stale, new_state, _, _ = _joint_inference_engine(
-        params, batch, cfg, compressor, generator, comp_state)
+        params, batch, cfg, compressor, generator, comp_state, mesh=mesh)
     if compressor is None:
         return logits, stale
     return logits, stale, new_state
@@ -543,11 +631,17 @@ def label_owner_grad(params, batch: SampledBatch, stale, cfg: GlasuConfig):
 
 def local_update_steps(params, opt_state, batch: SampledBatch, stale,
                        cfg: GlasuConfig, optimizer: opt_lib.Optimizer,
-                       g_hl=None, fault_w=None, fault_denom=None):
+                       g_hl=None, fault_w=None, fault_denom=None, mesh=None):
     """Q iterations of Alg 4 (same mini-batch, stale H_{-m}): all M trunks
     stacked, one kernel launch per layer, the SUM of the per-client losses
     backpropagated (each client gets exactly its own gradient) and their
     MEAN reported. Returns ``(params, opt_state, losses (Q,))``.
+
+    With ``mesh`` every stacked input holds the rank's block of clients;
+    the update is rank-local (the stale buffers already hold H_{-m}), each
+    client passes its GLOBAL index to the combine (concat places its own
+    block there), and only the reported loss row is all-gathered, so the
+    mean is over all M clients (a diagnostic, not metered traffic).
 
     With ``labels_at_client`` set (Appendix B.2, Alg 7) only the owner
     evaluates the real loss; every other client trains on the surrogate
@@ -557,14 +651,16 @@ def local_update_steps(params, opt_state, batch: SampledBatch, stale,
     combine as the server weighted it in the aggregate.
     """
     stale = {l: v.detach() for l, v in stale.items()}
+    clients = None if mesh is None else \
+        list(range(mesh.i0, mesh.i0 + mesh.m_loc))
     losses = []
     for _ in range(cfg.n_local_steps):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         p = tree_unflatten(params, leaves)
         with torch.enable_grad():
             if cfg.labels_at_client is None:
-                per = client_loss(p, batch, stale, cfg, fault_w=fault_w,
-                                  fault_denom=fault_denom)
+                per = client_loss(p, batch, stale, cfg, clients,
+                                  fault_w=fault_w, fault_denom=fault_denom)
             else:
                 h_l = _client_trunk(cfg, p, batch, stale, return_hidden=True)
                 own = _nll(_linear(p["cls"], h_l), batch.labels)
@@ -580,7 +676,8 @@ def local_update_steps(params, opt_state, batch: SampledBatch, stale,
         updates, opt_state = optimizer.update(
             tree_unflatten(params, grads), opt_state, params)
         params = opt_lib.apply_updates(params, updates)
-        losses.append(torch.mean(per.detach()))
+        per = per.detach()
+        losses.append(torch.mean(per if mesh is None else mesh.gather(per)))
     return params, opt_state, torch.stack(losses)
 
 
@@ -588,19 +685,27 @@ def local_update_steps(params, opt_state, batch: SampledBatch, stale,
 def _round_body(cfg: GlasuConfig, optimizer: opt_lib.Optimizer,
                 comp: Optional[Compressor], params, opt_state,
                 batch: SampledBatch, generator=None, comp_state=None,
-                fault_state=None, faults: Optional[RoundFaults] = None):
-    """One GLASU round (Alg 1 body): JointInference + Q LocalUpdates.
-    Returns ``(params, opt_state, comp_state, fault_state, losses (Q,))``;
-    a carry whose exchange form is off passes through as given."""
+                fault_state=None, faults: Optional[RoundFaults] = None, *,
+                mesh=None):
+    """One GLASU round (Alg 1 body): JointInference + Q LocalUpdates, on
+    one device or (``mesh``) on a rank's block of clients. Returns
+    ``(params, opt_state, comp_state, fault_state, losses (Q,))``; a carry
+    whose exchange form is off passes through as given."""
+    if mesh is not None and cfg.labels_at_client is not None:
+        raise NotImplementedError(
+            "labels_at_client requires indexing the global client axis "
+            "(Alg 6 owner gradient); use the vmapped backend")
     fault_w = fault_denom = None
     if cfg.agg_layers:
         _, stale, new_comp, new_cache, denom = _joint_inference_engine(
             params, batch, cfg, comp, generator, comp_state, fault_state,
-            faults)
+            faults, mesh=mesh)
         if comp is not None:
             comp_state = new_comp
         if faults is not None:
-            fault_state, fault_w, fault_denom = new_cache, faults.weight, denom
+            fault_state, fault_denom = new_cache, denom
+            fault_w = faults.weight if mesh is None else \
+                faults.weight[mesh.i0:mesh.i0 + mesh.m_loc]
     else:
         stale = {}          # standalone: no communication, no stale buffers
     g_hl = None
@@ -608,7 +713,7 @@ def _round_body(cfg: GlasuConfig, optimizer: opt_lib.Optimizer,
         g_hl = label_owner_grad(params, batch, stale, cfg)
     params, opt_state, losses = local_update_steps(
         params, opt_state, batch, stale, cfg, optimizer, g_hl=g_hl,
-        fault_w=fault_w, fault_denom=fault_denom)
+        fault_w=fault_w, fault_denom=fault_denom, mesh=mesh)
     return params, opt_state, comp_state, fault_state, losses
 
 
@@ -636,25 +741,34 @@ def _carries(cfg: GlasuConfig):
     return comp, split, join
 
 
-def make_round_fn(cfg: GlasuConfig, optimizer: opt_lib.Optimizer):
+def make_round_fn(cfg: GlasuConfig, optimizer: opt_lib.Optimizer, *,
+                  mesh=None):
     """One GLASU round over the carry layout of ``cfg``, as the reference's
     ``make_round_fn``: ``(params, opt_state, [comp_state,] [fault_state,]
     batch, generator=None[, faults]) -> (params, opt_state, [comp_state,]
     [fault_state,] losses (Q,))`` — ``cfg.compression`` threads the
     error-feedback carry, ``cfg.fault_tolerant`` the stale-embedding cache
     and the round's ``RoundFaults``. ``generator`` feeds the §3.6 hooks
-    (unused when they are off, and by fault rounds)."""
+    (unused when they are off, and by fault rounds).
+
+    With ``mesh`` the round runs on the rank's block of clients (the
+    reference's ``make_sharded_round_fn`` body): params, optimizer state,
+    batch, the uplink error feedback and the plain fault cache hold the
+    block; labels, ``generator``'s draws, ``faults`` and the composed fault
+    cache are global; the losses are over all M clients."""
+    _client_axis_check(cfg, mesh)
     comp, split, join = _carries(cfg)
 
     def round_fn(params, opt_state, *args):
         cs, fs, batch, gen, faults = split(args)
         return join(*_round_body(cfg, optimizer, comp, params, opt_state,
-                                 batch, gen, cs, fs, faults))
+                                 batch, gen, cs, fs, faults, mesh=mesh))
     return round_fn
 
 
 def make_multi_round_fn(cfg: GlasuConfig, optimizer: opt_lib.Optimizer,
-                        rounds_per_step: Optional[int] = None):
+                        rounds_per_step: Optional[int] = None, *,
+                        mesh=None):
     """K GLASU rounds per call over round-stacked batches (every leaf has a
     leading round axis K; ``graph.prefetch.stack_rounds``), with
     ``make_round_fn``'s carry layout: ``(params, opt_state, [comp_state,]
@@ -665,8 +779,11 @@ def make_multi_round_fn(cfg: GlasuConfig, optimizer: opt_lib.Optimizer,
 
     ``rounds_per_step`` is an optional hint: a batch stack whose leading
     axis disagrees is rejected loudly instead of running a different
-    number of rounds.
+    number of rounds. ``mesh``: every round on the rank's block of clients,
+    as ``make_round_fn``'s (the reference's ``make_sharded_multi_round_fn``
+    body); the carries stay rank-local across the K rounds.
     """
+    _client_axis_check(cfg, mesh)
     comp, split, join = _carries(cfg)
 
     def step_fn(params, opt_state, *args):
@@ -683,16 +800,25 @@ def make_multi_round_fn(cfg: GlasuConfig, optimizer: opt_lib.Optimizer,
                 RoundFaults(faults.present[i], faults.weight[i])
             params, opt_state, cs, fs, q = _round_body(
                 cfg, optimizer, comp, params, opt_state,
-                unstack_round(batches, i), gen, cs, fs, f)
+                unstack_round(batches, i), gen, cs, fs, f, mesh=mesh)
             losses.append(q)
         return join(params, opt_state, cs, fs, torch.stack(losses))
     return step_fn
 
 
+def _client_axis_check(cfg: GlasuConfig, mesh) -> None:
+    if mesh is not None and mesh.n_clients != cfg.n_clients:
+        raise ValueError(
+            f"the client mesh holds {mesh.size} ranks of {mesh.m_loc} "
+            f"clients, which is not n_clients={cfg.n_clients}; build it "
+            "with launch.mesh.make_client_mesh(n_clients)")
+
+
 # ------------------------------------------------------------------- serving
 def serve_forward(params, batch: SampledBatch, cfg: GlasuConfig,
                   compressor: Optional[Compressor] = None,
-                  cache_inject: Optional[Dict[int, Any]] = None):
+                  cache_inject: Optional[Dict[int, Any]] = None, *,
+                  mesh=None):
     """Cross-client forward for one served query plan.
 
     ``compressor`` runs each aggregation through the wire codec (no
@@ -703,9 +829,17 @@ def serve_forward(params, batch: SampledBatch, cfg: GlasuConfig,
     n_L, h_agg) representation the classifier consumes, and the
     post-injection aggregate stacks ``{l: (M, n_{l+1}, h_agg)}`` the
     session reads its cache fills from.
+
+    With ``mesh`` (the reference's ``sharded_serve_forward``) ``params`` /
+    ``batch`` and the outputs hold the rank's block of clients: the uploads
+    (or the wire payload) are all-gathered at each aggregation, and
+    injection overwrites the rank's block of the replicated cached rows.
     """
-    m = cfg.n_clients
-    rows = torch.arange(m, device=batch.feats.device)[:, None]
+    gather = None if mesh is None else mesh.gather
+    i0 = 0 if mesh is None else mesh.i0
+    m_blk = batch.feats.shape[0]
+    blk = lambda x: x if gather is None else x[i0:i0 + m_blk]
+    rows = torch.arange(m_blk, device=batch.feats.device)[:, None]
     h = _linear(params["inp"], batch.feats)
     h0 = h
     aggs: Dict[int, Any] = {}
@@ -716,12 +850,14 @@ def serve_forward(params, batch: SampledBatch, cfg: GlasuConfig,
         h0 = h0[rows, batch.self_pos[l].long()]
         if l in cfg.agg_layers:
             if compressor is None:
-                h, _ = _aggregate(cfg, h_plus)
+                h = blk(_aggregate(cfg, h_plus if gather is None
+                                   else gather(h_plus))[0])
             else:
-                h = _compressed_aggregate(cfg, compressor, h_plus, None)[0]
+                h = _compressed_aggregate(cfg, compressor, h_plus, None,
+                                          gather=gather, i0=i0, layer=l)[0]
             if cache_inject is not None and l in cache_inject:
                 keep, cached = cache_inject[l]
-                h = torch.where(keep[None, :, None] > 0, cached, h)
+                h = torch.where(keep[None, :, None] > 0, blk(cached), h)
             aggs[l] = h
         else:
             h = h_plus

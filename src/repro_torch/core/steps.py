@@ -2,7 +2,7 @@
 
 Counterpart of ``make_serve_step`` in ``repro.core.steps``: one-token greedy
 decode against the per-layer caches (a ring buffer under a sliding
-window). The training steps are not ported yet (ROADMAP Queue 1 item 4).
+window). The training steps are not ported yet (ROADMAP Queue 1 item 2).
 """
 from __future__ import annotations
 

@@ -9,8 +9,8 @@ parameters instead (``core.checkpoint.params_from_numpy``).
 
 The reference's sharding shim (``shard``, ``wcol``, ``wrow``,
 ``shard_seq``) places activations and weights on a TPU mesh. The port runs
-on one device, so they are identities here; sharding across cards is
-ROADMAP Queue 1 item 3.
+on one device, so they are identities here; sharding the transformer
+across cards is part of ROADMAP Queue 1 item 2.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 # ----------------------------------------------------------------- sharding
 def shard(x, *spec):
-    """Identity: one device, no mesh (sharding is ROADMAP Queue 1 item 3)."""
+    """Identity: one device, no mesh (ROADMAP Queue 1 item 2)."""
     return x
 
 

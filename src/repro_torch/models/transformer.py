@@ -15,7 +15,7 @@ stale-update training path (``collect_stale`` / ``stale``) is not ported.
 
 Not ported yet, and refused where a model is built or run: MoE, MLA,
 mamba2, rwkv6, encoder-decoder and dense-head configs, and the prefix
-embeddings of the VLM / audio stubs (ROADMAP Queue 1 item 4).
+embeddings of the VLM / audio stubs (ROADMAP Queue 1 item 2).
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ def _check_ported(cfg: ArchConfig):
         if unported:
             raise NotImplementedError(
                 f"{cfg.name}: {what} not ported yet (the port serves dense "
-                "GQA decoders and the GLASU split; ROADMAP Queue 1 item 4)")
+                "GQA decoders and the GLASU split; ROADMAP Queue 1 item 2)")
 
 
 def _stack_init(fn, gen, n):
@@ -74,7 +74,7 @@ def _init_attn(gen, cfg: ArchConfig):
 def _no_moe(use_moe: bool):
     if use_moe:
         raise NotImplementedError(
-            "MoE blocks not ported yet (ROADMAP Queue 1 item 4)")
+            "MoE blocks not ported yet (ROADMAP Queue 1 item 2)")
 
 
 def _init_dense_block(gen, cfg: ArchConfig, use_moe: bool):

@@ -30,9 +30,10 @@ class ServeConfig:
     buckets           padded batch sizes every dispatch is padded to;
                       None -> powers of two up to max_batch
     engine            'vmapped' (stacked clients on one device) or
-                      'sharded' (clients over a device mesh; not ported yet)
+                      'sharded' (client blocks over a torch.distributed
+                      client mesh, collective aggregation)
     record_log        keep a per-query message-log replay on every answer
-                      (the reference's audit; not ported yet)
+                      (the reference's audit of the byte bill)
     """
 
     cache_entries: int = 4096

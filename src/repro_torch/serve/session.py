@@ -19,9 +19,12 @@ Query path, per dispatch:
    and the plan is padded to bucketed static shapes.
 3. One dispatch of ``core.glasu.serve_forward`` on the session's device
    (on CUDA every GCNII layer is one launch of the hand-written kernel for
-   all clients) runs the plan with cached rows injected after each
-   aggregation; fresh aggregates are written back to the cache keyed on
-   (node, layer) at the current ``params_version``.
+   all clients), or with ``ServeConfig(engine="sharded")`` of the same
+   forward on this rank's block of a ``torch.distributed`` client mesh
+   (``mesh=``; ``close`` releases the mesh), runs the plan with cached
+   rows injected after each aggregation; fresh aggregates are written
+   back to the cache keyed on (node, layer) at the current
+   ``params_version``.
 
 On a streamed feature store (the power-law profiles) the session holds
 only the neighbor tables; each plan gathers its level-0 rows from the store
@@ -34,8 +37,10 @@ Byte accounting prices exactly the FRESH rows at each aggregation layer,
 at the wire size of the session codec (``comm.compression``; float32
 without one), as the reference's ``_price`` does. A ``compression`` block
 runs each aggregation of a cold answer through that codec; a warm answer
-stays at zero bytes. Only the single-device (``vmapped``) engine is
-ported; the sharded engine and the message-log replay raise.
+stays at zero bytes. ``ServeConfig(record_log=True)`` attaches to every
+answer the per-query ``MessageLog`` that ``fed.simulation.log_query_traffic``
+replays from the same fresh-row counts, whose total is the answer's
+``upload_bytes + broadcast_bytes + index_bytes``.
 """
 from __future__ import annotations
 
@@ -50,8 +55,11 @@ from ..comm.compression import make_compressor
 from ..core import checkpoint, glasu
 from ..core.train import _eval_neighbor_tables, _eval_tables
 from ..device import resolve_device
+from ..fed.simulation import MessageLog, log_query_traffic
 from ..graph.feature_store import is_streamed
 from ..graph.sampler import SampledBatch
+from ..launch.mesh import make_client_mesh
+from ..launch.sharding import local_inputs
 from .cache import HotNodeCache
 from .config import ServeConfig
 from .metrics import ServeAnswer, ServeMetrics
@@ -84,13 +92,6 @@ class InferenceSession:
             serve = getattr(config, "serve", None) or ServeConfig()
         elif isinstance(serve, dict):
             serve = ServeConfig(**serve)
-        if serve.engine != "vmapped":
-            raise NotImplementedError(
-                f"serve engine {serve.engine!r} is not ported yet (the port "
-                "serves on one device: engine='vmapped')")
-        if serve.record_log:
-            raise NotImplementedError(
-                "record_log (the message-log replay) is not ported yet")
         self.config = config
         self.serve = serve
         if data is None:
@@ -136,6 +137,31 @@ class InferenceSession:
         self.metrics = ServeMetrics()
         self._lock = threading.Lock()
         self._sizes: Dict[int, list] = {}
+
+        self._mesh = None
+        if serve.engine == "sharded":
+            self._mesh = make_client_mesh(self.M,
+                                          max_devices=config.mesh_devices,
+                                          device=self.device)
+            self._fwd = self._sharded_forward
+        else:
+            self._fwd = lambda p, b, inj: glasu.serve_forward(
+                p, b, self.mcfg, compressor=self._comp, cache_inject=inj)
+
+    def _sharded_forward(self, params, batch, inject):
+        """``serve_forward`` on this rank's block of clients, its outputs
+        gathered back to the global (M, ...) stacks."""
+        mesh = self._mesh
+        params, batch = local_inputs(params, batch, mesh)
+        h, aggs = glasu.serve_forward(params, batch, self.mcfg, self._comp,
+                                      inject, mesh=mesh)
+        return mesh.gather(h), {l: mesh.gather(a) for l, a in aggs.items()}
+
+    def close(self) -> None:
+        """Release the sharded engine's client mesh (and the one-rank
+        process group it may have built); a no-op for the vmapped one."""
+        if self._mesh is not None:
+            self._mesh.close()
 
     def _stage(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -381,7 +407,7 @@ class InferenceSession:
             latency_s=sum(a.latency_s for a in answers),
             cold=any(a.cold for a in answers),
             params_version=self.params_version,
-            log=None)
+            log=answers[0].log)
 
     def _answer_locked(self, nodes: np.ndarray) -> ServeAnswer:
         t0 = time.perf_counter()
@@ -406,9 +432,7 @@ class InferenceSession:
             cold = False
         else:
             plan = self._build_plan(uniq, bucket, top_hit, top_rows)
-            h, aggs = glasu.serve_forward(self.params, plan.batch, self.mcfg,
-                                          compressor=self._comp,
-                                          cache_inject=plan.inject)
+            h, aggs = self._fwd(self.params, plan.batch, plan.inject)
             # host roundtrip on purpose: the warm path assembles the same
             # f32 rows from cache, so both paths feed the classifier
             # bitwise-identical arrays
@@ -436,13 +460,17 @@ class InferenceSession:
         # decision that picks warm vs cold
         n_hit = int((top_hit > 0).sum())
         n_miss = b - n_hit
+        log = None
+        if self.serve.record_log:
+            log = MessageLog()
+            log_query_traffic(log, fresh, m, compressor=self._comp)
         return ServeAnswer(
             nodes=np.array(nodes), logits=ens, per_client=per,
             preds=np.argmax(ens, axis=-1).astype(np.int32),
             fresh_rows=dict(fresh), upload_bytes=up, broadcast_bytes=down,
             index_bytes=idx, cache_hits=n_hit, cache_misses=n_miss,
             latency_s=time.perf_counter() - t0, cold=cold,
-            params_version=self.params_version, log=None)
+            params_version=self.params_version, log=log)
 
     # -------------------------------------------------------- management
     def update_params(self, params, version: Optional[int] = None):

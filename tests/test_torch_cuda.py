@@ -562,3 +562,76 @@ def test_compressed_serving_on_card_matches_cpu(cuda_device, compression):
     np.testing.assert_array_equal(warm.logits, card.logits)
     np.testing.assert_allclose(card.per_client, host.per_client,
                                **CARD_COMP_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["simulation", "sharded"])
+@pytest.mark.parametrize("extra", [{}, {"compression": {"method": "int8"}},
+                                   {"faults": CARD_FAULTS}])
+def test_message_and_sharded_rounds_on_card_match_cpu(cuda_device, backend,
+                                                       extra):
+    """Two SGD rounds (Q = 2) of the simulation and sharded backends from
+    the same parameters, batches (and plans) on the card and on the CPU;
+    on the card every client sub-layer is a GCNII kernel launch (M a layer
+    in the simulation's joint inference, one for the block when
+    sharded), and the bytes are the vmapped backend's."""
+    from repro_torch.api import make_backend
+    from repro_torch.fed.faults import FaultConfig, FaultSchedule
+    cfg = ExperimentConfig(**TINY_RUN, backbone="gcnii", n_local_steps=2,
+                           **extra)
+    data = make_vfl_dataset("tiny")
+    mcfg = cfg.glasu_config(data)
+    host = sample_rounds(GlasuSampler(data, cfg.sampler_config(), seed=2), 2)
+    plans = FaultSchedule(FaultConfig(**CARD_FAULTS), 3).draw_step(2) \
+        if "faults" in extra else None
+    kw = {} if plans is None else {"faults": plans}
+    p0 = glasu.init_params(torch.Generator().manual_seed(2), mcfg, "cpu")
+    kernel = graph_agg.gcnii_layer_cuda
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        opt = cfg.make_optimizer()
+        be = make_backend(backend, **({"device": dev} if backend == "sharded"
+                                      else {}))
+        be.bind(mcfg, opt, GlasuSampler(data, cfg.sampler_config()))
+        p = tree_map(lambda t: t.to(dev), p0)
+        before = kernel.launches
+        res = be.run_step(p, opt.init(p), batch_to_device(host, dev), **kw)
+        out[dev.type] = (tree_leaves(tree_map(lambda t: t.cpu(),
+                                              res.params)),
+                         res.losses.cpu(), kernel.launches - before,
+                         res.comm_bytes_rounds or res.comm_bytes_round)
+        be.close()
+    (pc, lc, launches, bc), (pp, lp, none, bp) = out["cuda"], out["cpu"]
+    joint = mcfg.n_clients if backend == "simulation" else 1
+    assert launches == 2 * (joint + 2) * mcfg.n_layers and none == 0
+    assert bc == bp
+    tol = CARD_COMP_TOL if "compression" in extra else CARD_TOL
+    torch.testing.assert_close(lc, lp, **tol)
+    for a, b in zip(pc, pp):
+        torch.testing.assert_close(a, b, **tol)
+
+
+@pytest.mark.cuda
+def test_sharded_serving_on_card_matches_cpu(cuda_device):
+    """The sharded serve engine on the card (a one-rank NCCL group) against
+    the CPU's (gloo) and the vmapped engine: equal bills and logs."""
+    from repro_torch.serve import InferenceSession, ServeConfig
+    cfg = ExperimentConfig(**TINY_RUN)
+    data = make_vfl_dataset("tiny")
+    params = glasu.init_params(torch.Generator().manual_seed(4),
+                               cfg.glasu_config(data), "cpu")
+    q = np.array([3, 7, 50, 200])
+    ans = {}
+    for dev in ("cuda", "cpu"):
+        for eng in ("sharded", "vmapped"):
+            sess = InferenceSession(params, cfg, data, device=dev,
+                                    serve=ServeConfig(max_batch=8, engine=eng,
+                                                      record_log=True))
+            ans[dev, eng] = sess.answer(q)
+            sess.close()
+    card = ans["cuda", "sharded"]
+    for other in (ans["cpu", "sharded"], ans["cuda", "vmapped"]):
+        assert card.wire_bytes == other.wire_bytes > 0
+        assert card.log.total_bytes() == card.wire_bytes
+        np.testing.assert_allclose(card.per_client, other.per_client,
+                                   **CARD_TOL)

@@ -22,6 +22,7 @@ import torch
 from repro_torch.api import ExperimentConfig, Trainer, make_backend
 from repro_torch.core import checkpoint, glasu
 from repro_torch.device import resolve_device
+from repro_torch.graph.synth import make_vfl_dataset
 from repro_torch.serve import InferenceSession
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -101,24 +102,43 @@ def test_default_device_is_cuda_and_raises_without_it():
                           glasu.GlasuConfig())
 
 
-def test_unported_training_options_raise():
-    """What the port still refuses: the simulation and sharded backends,
-    the sharded serve engine and the serving message-log replay."""
+def test_unported_training_options_raise(monkeypatch):
+    """What the port still refuses: the transformer training steps, the
+    flash kernel's backward on the card and MoE blocks. Every backend and
+    serve engine of the reference is ported and runs on the CPU."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.core import steps
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    assert not hasattr(steps, "make_train_step")
+    q = torch.zeros(1, 4, 2, 8, requires_grad=True)
+    kv = torch.zeros(1, 4, 2, 8)
+    monkeypatch.setattr(ops, "_device", lambda name, t: "cuda")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        ops.flash_attention(q, kv, kv)
+    monkeypatch.undo()
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tfm.init_lm(torch.Generator().manual_seed(0),
+                    get_reduced("phi35_moe_42b"), "cpu")
     tiny = dict(dataset="tiny", hidden=8, batch_size=8, size_cap=96)
-    for name in ("simulation", "sharded"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            make_backend(name)
     with pytest.raises(ValueError, match="unknown backend"):
         make_backend("mpi")
     for name in ("simulation", "sharded"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            Trainer(ExperimentConfig(backend=name, **tiny), device="cpu")
-    params = checkpoint.params_from_numpy({"W": np.ones(2, np.float32)},
-                                          "cpu")
+        trainer = Trainer(ExperimentConfig(backend=name, rounds=1,
+                                           eval_every=1, **tiny),
+                          device="cpu")
+        assert trainer.backend.name == name
+        assert trainer.run().comm_bytes > 0
+        trainer.close()
+    params = glasu.init_params(
+        torch.Generator().manual_seed(0),
+        ExperimentConfig(**tiny).glasu_config(make_vfl_dataset("tiny")),
+        "cpu")
     for serve in ({"engine": "sharded"}, {"record_log": True}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            InferenceSession(params, ExperimentConfig(**tiny), serve=serve,
-                             device="cpu")
+        sess = InferenceSession(params, ExperimentConfig(**tiny),
+                                serve=serve, device="cpu")
+        assert sess.answer([0, 1]).wire_bytes > 0
+        sess.close()
     trainer = Trainer(ExperimentConfig(rounds=1, eval_every=1, **tiny),
                       device="cpu")
     assert trainer.device == torch.device("cpu")

@@ -101,19 +101,44 @@ def test_config_reads_reference_json(extra):
 
 @pytest.mark.parametrize("extra,what", [({"backend": "sharded"}, "sharded")])
 def test_unported_features_raise(world, extra, what):
+    """The sharded backend, once refused here, is ported: its config binds
+    the vmapped backend's model and a session under it answers as the
+    reference's does. An engine neither package knows still raises."""
     cfg = ExperimentConfig(**_kw(**extra))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cfg.glasu_config(world["pt_data"])
-    with pytest.raises(NotImplementedError, match=what):
-        InferenceSession(world["pt_params"], cfg, world["pt_data"],
-                         device="cpu")
+    assert cfg.glasu_config(world["pt_data"]) == world["pt_mcfg"]
+    with pytest.raises(ValueError, match="engine"):
+        ServeConfig(engine=f"{what}-mpi")
+    sess = InferenceSession(world["pt_params"], cfg, world["pt_data"],
+                            device="cpu")
+    got = sess.answer([0, 5, 9])
+    sess.close()
+    want = RefSession(world["ref_params"], RefConfig(**_kw(**extra)),
+                      world["ref_data"]).answer([0, 5, 9])
+    _close(got.per_client, want.per_client)
+    assert got.wire_bytes == want.wire_bytes
 
 
 def test_unported_serve_options_raise(world):
-    for serve in (ServeConfig(engine="sharded"), ServeConfig(record_log=True)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            InferenceSession(world["pt_params"], world["pt_cfg"],
-                             world["pt_data"], serve=serve, device="cpu")
+    """The sharded engine and ``record_log``, once refused here, are
+    ported: each session answers as the reference's session with the same
+    ``ServeConfig``, bills equal, and the replayed log matches message for
+    message."""
+    for kw in ({"engine": "sharded"}, {"record_log": True}):
+        sess = InferenceSession(world["pt_params"], world["pt_cfg"],
+                                world["pt_data"], serve=ServeConfig(**kw),
+                                device="cpu")
+        got = sess.answer([2, 4, 6, 8])
+        sess.close()
+        want = RefSession(world["ref_params"], world["ref_cfg"],
+                          world["ref_data"],
+                          serve=RefServeConfig(**kw)).answer([2, 4, 6, 8])
+        _close(got.per_client, want.per_client)
+        assert (got.upload_bytes, got.broadcast_bytes, got.index_bytes) == \
+            (want.upload_bytes, want.broadcast_bytes, want.index_bytes)
+        assert (got.log is None) == (want.log is None)
+        if want.log is not None:
+            assert [vars(m) for m in got.log.messages] == \
+                [vars(m) for m in want.log.messages]
 
 
 @pytest.mark.parametrize("extra", [{"compression": {"method": "int8"}},
