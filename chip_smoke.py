@@ -122,6 +122,25 @@ Phases, each printing its own lines:
             time and the host; 32 greedy decode steps after the prompt
             (slots 4096..4127 of 4160-deep caches); decode against prefill in fp32 (B 2, 64-token prompt):
             argmax agreement >= 0.9, the last position exact;
+   train_lm SmolLM-360M trained at its published widths (bf16, remat,
+            AdamW, plain attention: the flash kernel has no backward, as
+            the reference's has none) through ``make_train_step``: 10 steps
+            on one B 4 x S 2048 TokenStream batch (finite losses, the last
+            below the first, no kernel launch), cold and median step ms,
+            tokens/s, peak device memory and a profiled step's idle share
+            and top device ops; its GLASU split (5 clients, sync every 2nd
+            layer, Q 4): 3 Q-step calls (12 microsteps, loss falling), the
+            joint and stale microsteps' ms; phi3.5-moe at its published
+            widths (d_model 4096, 32 / 8 heads of 128, 16 experts top-2 of
+            6400, vocab 32064, grad_accum 4), 1 of 32 layers, 4 steps at B 8
+            x S 1024 (aux > 0, the dropped fraction, peak memory); phi3.5-moe
+            served at 2 layers through the flash kernel (a B 2 x S 2048
+            prefill with exactly 2 launches, logits against the plain
+            version at the serve phase's bound, layer 0's launch at one
+            bf16 rounding and timed beside SDPA, 16 greedy decode steps);
+            one fp32 train step each of reduced SmolLM, phi3.5-moe
+            (grad_accum 2) and the SmolLM GLASU split (Q 3) on the card
+            against the CPU: loss and every gradient at rtol = atol = 1e-4;
 8. flash32k one flash launch at the 32k serving shape (B 1, S 32768, H 15,
             Kv 5, dh 64, bf16) against the plain version (one bf16
             rounding, as on the main path), its bound and one
@@ -144,6 +163,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -1189,27 +1209,15 @@ def _cold_breakdown(torch, np, sess, q, glasu, name):
           f"serve_forward to sync {statistics.median(fwd_ms):.3f} ms, "
           f"copy-back {statistics.median(d2h_ms):.3f} ms")
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     sess.cache.clear()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        ans = sess.answer(q)
-        torch.cuda.synchronize()
-    # device-side activities only (kernels, memcpys): a CPU op's device
-    # time is its children's, and summing both would count them twice
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in events)
+    ans, _, by_name, _ = _device_trace(torch, lambda: sess.answer(q))
+    busy_us = sum(ns for ns, _ in by_name.values()) / 1e3
     wall_us = ans.latency_s * 1e6
     print(f"slice: {name} profiled cold answer: wall {wall_us / 1e3:.3f} ms "
           f"(under "
           f"the profiler), device busy {busy_us / 1e3:.3f} ms, idle share "
-          f"{1 - busy_us / wall_us:.3f}")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"slice:   device {e.self_device_time_total:9.1f} us x{e.count:<3d}"
-              f" {e.key[:90]}")
+          f"{1 - busy_us / wall_us:.3f} (device-only trace)")
+    _print_top("slice:", by_name, 8, 90)
 
 
 def _train_width(mcfg, sampler, cfg):
@@ -1328,25 +1336,16 @@ def _round_breakdown(torch, mods, trainer, kernel, faults_fn=None):
           f"sync {med(rnd):.3f} ms; {per_round} {kernel.__name__} launches "
           "a round")
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        backend.run_step(params, opt_state, batch, **kw())
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in events)
+    _, wall_ms, by_name, _ = _device_trace(
+        torch, lambda: backend.run_step(params, opt_state, batch, **kw()))
+    wall_us = wall_ms * 1e3
+    busy_us = sum(ns for ns, _ in by_name.values()) / 1e3
     print(f"train: {trainer.cfg.name} profiled round: wall "
           f"{wall_us / 1e3:.3f} ms (under the profiler), device busy "
-          f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}, "
-          f"{sum(e.count for e in events)} device activities")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"train:   device {e.self_device_time_total:9.1f} us "
-              f"x{e.count:<4d} {e.key[:90]}")
+          f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f} "
+          f"(device-only trace), {sum(n for _, n in by_name.values())} "
+          "device activities")
+    _print_top("train:", by_name, 8, 90)
     return dict(sample_ms=med(samp), copy_ms=med(copy), round_ms=med(rnd),
                 busy_ms=busy_us / 1e3, profiled_wall_ms=wall_us / 1e3,
                 idle_share=1 - busy_us / wall_us)
@@ -1439,21 +1438,14 @@ def _prefetch_profile(torch, mods, cfg, name):
     prefetch_buffers 2 and 1, each under torch.profiler: the worker's
     sampling ms a round, the consumer's wait, the copies' device ms a
     round, and the window's device-busy time and idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     out = {}
     for n_buf in (2, 1):
         trainer = mods["Trainer"](cfg.with_(rounds=20, eval_every=0,
                                             target_acc=None,
                                             prefetch_buffers=n_buf))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            trainer.run()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA)
+        _, wall_ms, by_name, _ = _device_trace(torch, trainer.run)
+        wall_us = wall_ms * 1e3
+        busy_us = sum(ns for ns, _ in by_name.values()) / 1e3
         st = trainer.prefetch_stats
         out[n_buf] = dict(st, idle_share=1 - busy_us / wall_us,
                           wall_ms_per_round=wall_us / 20e3)
@@ -1787,19 +1779,11 @@ def _max_diff(torch, a, b):
 
 
 def _profiled_round(torch, fn):
-    """One call of ``fn`` under torch.profiler: (wall ms, device busy ms,
-    idle share)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
-    return wall_us / 1e3, busy_us / 1e3, 1 - busy_us / wall_us
+    """One call of ``fn`` under ``_device_trace``: (wall ms, device busy
+    ms, idle share)."""
+    _, wall_ms, by_name, _ = _device_trace(torch, fn)
+    busy_ms = sum(ns for ns, _ in by_name.values()) / 1e6
+    return wall_ms, busy_ms, 1 - busy_ms / wall_ms
 
 
 def phase_sim(torch, mods):
@@ -2248,10 +2232,10 @@ def smollm_config(**kw):
     heads over 5 kv heads of 64, d_ff 2560, vocab 49152, bf16. The repo
     registers only its reduced variant (``get_reduced("smollm_360m")``)."""
     from repro_torch.configs.base import ArchConfig
-    return ArchConfig(name="smollm-360m", kind="dense", n_layers=32,
-                      d_model=960, n_heads=15, n_kv=5, d_head=64, d_ff=2560,
-                      vocab=49152, dtype="bfloat16", optimizer="adamw",
-                      lr=3e-4, use_flash=True, **kw)
+    return ArchConfig(**{**dict(
+        name="smollm-360m", kind="dense", n_layers=32, d_model=960,
+        n_heads=15, n_kv=5, d_head=64, d_ff=2560, vocab=49152,
+        dtype="bfloat16", optimizer="adamw", lr=3e-4, use_flash=True), **kw})
 
 
 def _visible_pairs(s, t, causal, window):
@@ -2482,12 +2466,17 @@ def _host_ms(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _attention_annotated(mods):
-    """Patches that wrap every plain attention call (``_sdpa`` and
-    ``_sdpa_chunked``; outermost only) in a profiler range "attention". The
-    flash kernel is counted by name instead: the profiler does not tie a
-    kernel launched through ctypes to the range it was launched in."""
-    from torch.profiler import record_function
+ATTN_MARK = "spin_kernel"      # torch.cuda._sleep's kernel: a trace marker
+
+
+def _attention_marked(torch, mods, calls):
+    """Patches that bracket every plain attention call (``_sdpa`` and
+    ``_sdpa_chunked``; outermost only) with a 1-cycle marker kernel
+    (``torch.cuda._sleep``) on each side, so that ``_device_trace`` counts
+    the kernels between two markers as the attention's: its forward, and
+    under remat its recompute (the backward's kernels run outside the
+    call). Each call appends to ``calls``. The flash kernel is counted by
+    name."""
     attn = mods["attn"]
     depth = [0]
 
@@ -2496,10 +2485,12 @@ def _attention_annotated(mods):
             if depth[0]:
                 return fn(*args, **kw)
             depth[0] += 1
+            calls.append(1)
+            torch.cuda._sleep(1)
             try:
-                with record_function("attention"):
-                    return fn(*args, **kw)
+                return fn(*args, **kw)
             finally:
+                torch.cuda._sleep(1)
                 depth[0] -= 1
         return inner
 
@@ -2509,38 +2500,83 @@ def _attention_annotated(mods):
     return stack
 
 
-def _time_split(torch, mods, fn, label):
-    """One call of ``fn`` under torch.profiler: wall, device busy,
-    attention (the flash kernel plus the device time inside the plain
-    "attention" ranges), the GEMM kernels' time (all of them, the plain
-    attention's batched products included), and the host's share (wall -
-    busy)."""
+def _device_trace(torch, fn, mods=None):
+    """One call of ``fn`` under torch.profiler, device activity only (CPU op
+    tracing would slow the host and inflate the idle share), read from the
+    raw trace (``key_averages`` over a GLASU Q-step's ~68k kernels took
+    most of a minute). Returns (fn's result, wall ms to sync under the
+    profiler, {name: (device ns, count)} of the kernels and copies, and
+    with ``mods`` (the plain-attention kernels' ns between
+    ``_attention_marked``'s markers, the markers in the trace, the markers
+    launched), else None). A trace that holds fewer markers than were
+    launched has lost records (seen once over a GLASU Q-step's ~68k)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with _attention_annotated(mods), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall_ms = _host_ms(torch, fn)
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0 and e.key != "attention"]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    gemm_ms = sum(e.self_device_time_total for e in kernels
-                  if any(w in e.key.lower() for w in GEMM_WORDS)) / 1e3
-    flash_ms = sum(e.self_device_time_total for e in kernels
-                   if "flash_attention_kernel" in e.key) / 1e3
-    attn_ms = flash_ms + sum(getattr(e, "device_time_total", 0)
-                             for e in events if e.key == "attention"
-                             and e.device_type == DeviceType.CPU) / 1e3
-    print(f"{label} profiled: wall {wall_ms:.3f} ms (under the profiler), "
-          f"device busy {busy:.3f} ms (idle share {1 - busy / wall_ms:.3f})"
-          f": attention {attn_ms:.3f} ms (flash kernel {flash_ms:.3f}), the "
-          f"rest {busy - attn_ms:.3f} ms; GEMM kernels {gemm_ms:.3f} ms "
-          f"(the plain attention's batched products included); host and "
-          f"idle {wall_ms - busy:.3f} ms; {sum(e.count for e in kernels)} "
-          "device activities")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"{label}   device {e.self_device_time_total:10.1f} us "
-              f"x{e.count:<5d} {e.key[:80]}")
+    calls = []
+    with contextlib.ExitStack() as stack:
+        if mods is not None:
+            stack.enter_context(_attention_marked(torch, mods, calls))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out, wall_ms = _host_ms(torch, fn)
+    events = sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA),
+                    key=lambda e: e.start_ns())
+    by_name, inside, attn_ns, marks = {}, False, 0, 0
+    for e in events:
+        if mods is not None and ATTN_MARK in e.name():
+            inside, marks = not inside, marks + 1
+            continue
+        ns, n = by_name.get(e.name(), (0, 0))
+        by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+        attn_ns += e.duration_ns() if inside else 0
+    attn = (attn_ns, marks, 2 * len(calls)) if mods is not None else None
+    return out, wall_ms, by_name, attn
+
+
+def _print_top(prefix, by_name, n, width=80):
+    for name, (ns, k) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:n]:
+        print(f"{prefix}   device {ns / 1e3:10.1f} us x{k:<5d} "
+              f"{name[:width]}")
+
+
+def _device_profile(torch, fn, label, mods=None):
+    """``fn`` once to sync on the host clock, then once under
+    ``_device_trace``: wall (both), device busy (the kernels' and copies'
+    summed time), idle share (1 - busy / the profiled wall; also against
+    the unprofiled one), the GEMM kernels' time (the plain attention's
+    batched products included), the top device ops; with ``mods``, also
+    the attention: the flash kernel by name plus the plain attention's
+    kernels, and whether the trace holds every marker (traced once more if
+    not; an incomplete trace is printed as such, not failed: it is a
+    measurement, and every check lies elsewhere)."""
+    # the result is dropped at once: a second MoE train state does not fit
+    plain_ms = _host_ms(torch, fn)[1]
+    for attempt in (1, 2):       # once more if the trace lost records
+        wall_ms, by_name, attn = _device_trace(torch, fn, mods)[1:]
+        if attn is None or attn[1] == attn[2]:
+            break
+    busy = sum(ns for ns, _ in by_name.values()) / 1e6
+    gemm_ms = sum(ns for name, (ns, _) in by_name.items()
+                  if any(w in name.lower() for w in GEMM_WORDS)) / 1e6
+    split = ""
+    if attn is not None:
+        plain_attn_ns, marks, want = attn
+        flash_ms = sum(ns for name, (ns, _) in by_name.items()
+                       if "flash_attention_kernel" in name) / 1e6
+        attn_ms = flash_ms + plain_attn_ns / 1e6
+        split = (f": attention {attn_ms:.3f} ms (flash kernel {flash_ms:.3f}"
+                 f", plain attention's forward and recompute "
+                 f"{plain_attn_ns / 1e6:.3f}), the rest {busy - attn_ms:.3f}"
+                 f" ms; trace {'complete' if marks == want else 'INCOMPLETE'}"
+                 f" ({marks} of {want} markers, attempt {attempt})")
+    print(f"{label} profiled: wall {wall_ms:.3f} ms under the profiler, "
+          f"{plain_ms:.3f} ms the call before without it; device busy "
+          f"{busy:.3f} ms (idle share {1 - busy / wall_ms:.3f}, against the "
+          f"unprofiled wall {1 - busy / plain_ms:.3f}; device-only trace)"
+          f"{split}; GEMM kernels {gemm_ms:.3f} ms; "
+          f"{sum(n for _, n in by_name.values())} device activities")
+    _print_top(label, by_name, 6)
 
 
 def phase_serve_lm(torch, mods, label, cfg, want_launches):
@@ -2614,9 +2650,9 @@ def phase_serve_lm(torch, mods, label, cfg, want_launches):
             with _Capture(ops, "flash_attention_cuda", limit=1) as cap:
                 _prefill_logits(tfm, params, cfg, toks)
             out["captured"] = cap.calls
-        _time_split(torch, mods,
-                    lambda: _prefill_logits(tfm, params, cfg, toks),
-                    f"serve: {label} prefill")
+        _device_profile(torch,
+                        lambda: _prefill_logits(tfm, params, cfg, toks),
+                        f"serve: {label} prefill", mods)
 
         tok = logits.argmax(-1, keepdim=True).to(torch.int32)
         step_ms, gen_toks = [], []
@@ -2644,8 +2680,8 @@ def phase_serve_lm(torch, mods, label, cfg, want_launches):
               f"{dmed:.3f} ms a token step ({PREFILL_B / dmed * 1e3:.0f} "
               f"tokens/s), first {step_ms[0]:.3f} ms; no kernel launch (decode"
               f" attention is plain _sdpa, as in the reference)")
-        _time_split(torch, mods, lambda: step(params, caches, tok),
-                    f"serve: {label} decode step")
+        _device_profile(torch, lambda: step(params, caches, tok),
+                        f"serve: {label} decode step", mods)
     del params, caches
     torch.cuda.empty_cache()
     _decode_vs_prefill(torch, mods, label, cfg, want_launches)
@@ -2686,6 +2722,341 @@ def _decode_vs_prefill(torch, mods, label, cfg, want_launches):
                              "launches")
     del params, caches
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------ transformer training
+# SmolLM-360M trained at its published widths: train_4k (B 256 x S 4096)
+# cut to B 4 x S 2048, 10 steps on one fixed batch (loss must fall)
+TRAIN_LM_B, TRAIN_LM_S, TRAIN_LM_STEPS = 4, 2048, 10
+# the GLASU split: 3 calls of the Q = 4 step on that batch (12 microsteps)
+GLASU_TRAIN_SPLIT, GLASU_TRAIN_CALLS = (5, 2, 4), 3
+# phi3.5-moe at its published widths, depth cut to fit one card: 1 of 32
+# layers trained (B 8 x S 1024, grad_accum 4: four microbatches of 2 x
+# 1024), 2 served (a B 2 x S 2048 prefill, 16 greedy decode steps)
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 1, 8, 1024, 4
+MOE_SERVE_LAYERS, MOE_SERVE_B, MOE_SERVE_S, MOE_DECODE_STEPS = 2, 2, 2048, 16
+# fp32 card vs CPU steps: reduced configs at the CPU tests' size
+CARD_CPU_TRAIN = (("smollm_360m", {}, None),
+                  ("phi35_moe_42b", dict(grad_accum=2), None),
+                  ("smollm_360m", dict(d_ff=480), (3, 2, 3)))
+
+
+def phi35_moe_config(**kw):
+    """Phi-3.5-MoE (microsoft/Phi-3.5-MoE-instruct) at its published
+    widths, as the reference's own history recorded them (``git show
+    45395fd:src/repro/configs/phi35_moe_42b.py``): 32 layers, d_model 4096,
+    32 heads over 8 kv heads of 128, 16 experts top-2 of d_ff 6400, vocab
+    32064, grad_accum 4, bf16, adamw at 2e-4. The repo registers only its
+    reduced variant."""
+    from repro_torch.configs.base import ArchConfig
+    return ArchConfig(**{**dict(
+        name="phi3.5-moe-42b-a6.6b", kind="moe", n_layers=32, d_model=4096,
+        n_heads=32, n_kv=8, d_head=128, d_ff=6400, vocab=32064, moe=True,
+        n_experts=16, top_k=2, n_shared_experts=0, d_ff_expert=6400,
+        grad_accum=4, dtype="bfloat16", optimizer="adamw", lr=2e-4), **kw})
+
+
+def _gib(n):
+    return f"{n / 2 ** 30:.2f} GiB"
+
+
+def _lm_batch(torch, mods, vocab, b, s):
+    toks, labels = mods["TokenStream"](vocab, seed=SEED).batch(b, s)
+    return {"tokens": toks.to("cuda"), "labels": labels.to("cuda")}
+
+
+def _no_launches(graph_agg, what):
+    counts = _counts(graph_agg)
+    if any(counts.values()):
+        raise AssertionError(f"{what}: kernel launches {counts} (training "
+                             "runs no hand-written kernel)")
+
+
+def _train_run(torch, mods, cfg, batch, calls, label):
+    """``calls`` train-step calls on one batch from seed-0 parameters,
+    counted (no kernel may launch): (state, step, losses, metrics, host ms
+    of each call, peak device memory)."""
+    graph_agg = mods["graph_agg"]
+    init, step = mods["make_train_step"](cfg, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state = init(torch.Generator(device="cuda").manual_seed(SEED))
+    losses, ms = [], []
+    _zero_counts(graph_agg)                              # ---- counted run
+    for _ in range(calls):
+        (state, metrics), t = _host_ms(torch, lambda: step(state, batch))
+        losses.append(float(metrics["loss"]))
+        ms.append(t)
+    _no_launches(graph_agg, label)                       # ---- read counts
+    peak = torch.cuda.max_memory_allocated()
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{label}: losses {losses}")
+    return state, step, losses, metrics, ms, peak
+
+
+def _steps_line(label, cfg, n_params, tokens, losses, ms, peak):
+    """One line of a training run: widths, losses, cold and median host ms
+    a train-step call, tokens/s, peak device memory."""
+    med = statistics.median(ms[1:])
+    print(f"train_lm: {label} {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"heads {cfg.n_heads}/{cfg.n_kv} dh {cfg.d_head} vocab {cfg.vocab} "
+          f"{cfg.dtype} remat {cfg.remat} {cfg.optimizer}, {n_params} "
+          f"parameters, {tokens} tokens a call: losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; call cold {ms[0]:.1f} ms, median of {len(ms) - 1} "
+          f"{med:.1f} ms ({tokens / med * 1e3:.0f} tokens/s); peak device "
+          f"memory {_gib(peak)}")
+
+
+def phase_train_lm(torch, mods):
+    """Trains SmolLM-360M dense and GLASU-split and phi3.5-moe (1 layer) at
+    their published widths on the card, serves phi3.5-moe (2 layers)
+    through the flash kernel, and holds fp32 train steps on the card to the
+    CPU's."""
+    tree_leaves = mods["tree_leaves"]
+    out, part_s, t0 = {}, {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t0
+        part_s[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    # ---- SmolLM-360M, dense
+    cfg = smollm_config(use_flash=False)
+    batch = _lm_batch(torch, mods, cfg.vocab, TRAIN_LM_B, TRAIN_LM_S)
+    state, step, losses, _, ms, peak = _train_run(
+        torch, mods, cfg, batch, TRAIN_LM_STEPS, "dense training")
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    _steps_line("dense", cfg, n_params, TRAIN_LM_B * TRAIN_LM_S, losses, ms,
+                peak)
+    if not losses[-1] < losses[0] or state.step != TRAIN_LM_STEPS:
+        raise AssertionError(f"dense training: losses {losses}, step "
+                             f"{state.step}")
+    _device_profile(torch, lambda: step(state, batch),
+                    "train_lm: dense step", mods)
+    out["dense"] = dict(ms=statistics.median(ms[1:]), peak=peak)
+    del state, step
+    part("dense")
+
+    # ---- the GLASU split of the same model, Q = 4
+    split = cfg.with_(glasu=mods["GlasuSplit"](*GLASU_TRAIN_SPLIT))
+    steps = mods["steps"]
+    micro = []
+
+    def timed(fn):
+        def inner(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args)
+            torch.cuda.synchronize()
+            micro.append((time.perf_counter() - t0) * 1e3)
+            return res
+        return inner
+
+    with _swapped(steps, "_value_and_grad", timed(steps._value_and_grad)):
+        state, step, losses, _, ms, peak = _train_run(
+            torch, mods, split, batch, GLASU_TRAIN_CALLS, "GLASU training")
+    q = GLASU_TRAIN_SPLIT[2]
+    joint = statistics.median(micro[q::q])
+    stale = statistics.median([t for i, t in enumerate(micro[q:])
+                               if i % q])
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    _steps_line(f"GLASU (M, sync_every, Q) = {GLASU_TRAIN_SPLIT}, Q "
+                "microsteps a call,", split,
+                n_params, TRAIN_LM_B * TRAIN_LM_S * q, losses, ms, peak)
+    print(f"train_lm: GLASU forward + backward of a microstep (host clock "
+          f"to sync, calls 2..{GLASU_TRAIN_CALLS}): joint {joint:.1f} ms, "
+          f"stale {stale:.1f} ms (median); step counter {state.step}")
+    if state.step != q * GLASU_TRAIN_CALLS or not losses[-1] < losses[0]:
+        raise AssertionError(f"GLASU training: losses {losses}, step "
+                             f"{state.step}")
+    _device_profile(torch, lambda: step(state, batch),
+                    "train_lm: GLASU Q-step", mods)
+    out["glasu"] = dict(ms=statistics.median(ms[1:]), joint=joint,
+                        stale=stale, peak=peak)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    part("GLASU")
+
+    # ---- phi3.5-moe, 1 layer, trained
+    moe = mods["moe"]
+    moe_apply, dropped = moe.moe_apply, []
+
+    def recording(*args, **kw):
+        y, stats = moe_apply(*args, **kw)
+        dropped.append(stats.dropped_frac.detach())
+        return y, stats
+
+    mcfg = phi35_moe_config(n_layers=MOE_TRAIN_LAYERS)
+    batch = _lm_batch(torch, mods, mcfg.vocab, MOE_TRAIN_B, MOE_TRAIN_S)
+    with _swapped(moe, "moe_apply", recording):
+        state, step, losses, metrics, ms, peak = _train_run(
+            torch, mods, mcfg, batch, MOE_TRAIN_STEPS, "MoE training")
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    _steps_line("phi3.5-moe", mcfg, n_params, MOE_TRAIN_B * MOE_TRAIN_S,
+                losses, ms, peak)
+    aux = float(metrics["aux"])
+    # the last step's records (a recompute under remat may or may not get
+    # as far as recording: the same value again, or none)
+    drop = float(torch.stack(
+        dropped[-(len(dropped) // MOE_TRAIN_STEPS):]).mean())
+    print(f"train_lm: phi3.5-moe last step: aux {aux:.5f}, grad_norm "
+          f"{float(metrics['grad_norm']):.4f}, dropped fraction of (token, "
+          f"k) routes {drop:.4f} (mean over its {mcfg.grad_accum} "
+          f"microbatches; capacity factor {mcfg.capacity_factor})")
+    if not aux > 0 or not math.isfinite(aux):
+        raise AssertionError(f"MoE training: aux {aux}")
+    _device_profile(torch, lambda: step(state, batch),
+                    "train_lm: phi3.5-moe step", mods)
+    out["moe"] = dict(ms=statistics.median(ms[1:]), peak=peak, aux=aux,
+                      dropped=drop)
+    del state, step, batch, metrics
+    torch.cuda.empty_cache()
+    part("phi3.5-moe training")
+    out["moe_serve"] = _moe_serve(torch, mods)
+    part("phi3.5-moe serving")
+    _train_card_vs_cpu(torch, mods)
+    part("card vs CPU")
+    print("train_lm: host seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in part_s.items()))
+    return out
+
+
+def _moe_serve(torch, mods):
+    """phi3.5-moe (2 layers, bf16, seed-0 weights) through make_serve_step
+    with the flash kernel: a counted B 2 x S 2048 prefill (exactly one flash
+    launch a layer), its last-position logits against the plain version on
+    the card, the first launch's output against the plain version at one
+    bf16 rounding, then 16 greedy decode steps."""
+    tfm, flash, ops = mods["tfm"], mods["flash"], mods["ops"]
+    graph_agg = mods["graph_agg"]
+    cfg = phi35_moe_config(n_layers=MOE_SERVE_LAYERS, use_flash=True)
+    depth = MOE_SERVE_S + MOE_DECODE_STEPS
+    _, step = mods["make_serve_step"](
+        cfg, mods["InputShape"]("serve", depth, MOE_SERVE_B, "decode"),
+        device="cuda")
+    params = tfm.init_lm(torch.Generator(device="cuda").manual_seed(SEED),
+                         cfg, "cuda")
+    toks = _lm_batch(torch, mods, cfg.vocab, MOE_SERVE_B,
+                     MOE_SERVE_S)["tokens"]
+    with torch.inference_mode():
+        _prefill_logits(tfm, params, cfg, toks)          # warm-up
+        _zero_counts(graph_agg)                          # ---- counted run
+        logits, ms = _host_ms(torch, lambda: _prefill_logits(tfm, params,
+                                                             cfg, toks))
+        counts = _counts(graph_agg)                      # ---- read counts
+        launches = counts.pop("flash_attention_cuda")
+        if launches != MOE_SERVE_LAYERS or any(counts.values()):
+            raise AssertionError(f"phi3.5-moe prefill: {launches} flash "
+                                 f"launches (want {MOE_SERVE_LAYERS}), others"
+                                 f" {counts}")
+        plain = lambda q, k, v, **kw: flash.flash_attention_plain(q, k, v,
+                                                                  **kw)
+        with _swapped(ops, "flash_attention_cuda", plain):
+            want = _prefill_logits(tfm, params, cfg, toks)
+        err = float((logits.float() - want.float()).abs().max())
+        if err > PREFILL_LOGIT_ATOL or not bool(
+                logits.float().isfinite().all()):
+            raise AssertionError(f"phi3.5-moe prefill logits vs the plain "
+                                 f"version: {err:.3e} > {PREFILL_LOGIT_ATOL}")
+        with _Capture(ops, "flash_attention_cuda", limit=1) as cap:
+            _prefill_logits(tfm, params, cfg, toks)
+        (args, kw), = cap.calls
+        q, k, v = args
+        got = flash.flash_attention_cuda(q, k, v, **kw)
+        kerr, excess = _check_flash_bf16(
+            "phi3.5-moe flash launch", got,
+            flash.flash_attention_plain(q, k, v, **kw))
+        b, s, h, dh = q.shape
+        bound_ms, bound_by, _, _ = _flash_bound(
+            b, s, k.shape[1], h, k.shape[2], dh, kw["causal"], kw["window"],
+            "bfloat16")
+        launch = dict(
+            shape=f"B {b}, S = T = {s}, H {h}, Kv {k.shape[2]}, dh {dh}, "
+                  "bf16, causal",
+            max_abs_err=kerr, bf16_excess=excess,
+            ms=_time_ms(torch, lambda: flash.flash_attention_cuda(q, k, v,
+                                                                  **kw)),
+            plain_ms=_time_ms(torch, lambda: flash.flash_attention_plain(
+                q, k, v, **kw), reps=5),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=_time_ms(torch, lambda: _sdpa_library(
+                torch, q, k, v, kw["causal"])))
+        print(f"train_lm: phi3.5-moe serve {cfg.n_layers} layers, prefill "
+              f"B={b} S={s}: {launches} flash launches, {ms:.1f} ms; last-"
+              f"position logits vs the plain version on the card {err:.3e} "
+              f"(<= {PREFILL_LOGIT_ATOL}); layer 0's launch ("
+              f"{launch['shape']}) vs plain {kerr:.3e} (one bf16 rounding), "
+              f"{launch['ms']:.4f} "
+              f"ms (plain {launch['plain_ms']:.4f}, SDPA "
+              f"{launch['library_ms']:.4f}, bound {bound_ms:.4f} by "
+              f"{bound_by})")
+        caches = tfm.init_caches(cfg, MOE_SERVE_B, depth,
+                                 prefill_len=MOE_SERVE_S, device="cuda")
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        step_ms, gen = [], []
+        _zero_counts(graph_agg)
+        for _ in range(MOE_DECODE_STEPS):
+            (tok, caches), t = _host_ms(torch, lambda: step(params, caches,
+                                                            tok))
+            step_ms.append(t)
+            gen.append(tok)
+        dcounts = _counts(graph_agg)
+        gen = torch.cat(gen, dim=1)
+        pos = caches["blocks"].pos
+        if any(dcounts.values()) or not bool((pos == depth).all()) or \
+                not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
+            raise AssertionError(f"phi3.5-moe decode: launches {dcounts}, "
+                                 f"positions {pos.tolist()}")
+        print(f"train_lm: phi3.5-moe decode {MOE_DECODE_STEPS} greedy steps,"
+              f" B={MOE_SERVE_B}, positions {MOE_SERVE_S}..{depth - 1}: "
+              f"median {statistics.median(step_ms):.3f} ms a step, first "
+              f"{step_ms[0]:.3f} ms")
+    del params, caches
+    torch.cuda.empty_cache()
+    return dict(launches=launches, prefill_ms=ms, logit_err=err,
+                launch=launch)
+
+
+def _train_card_vs_cpu(torch, mods):
+    """One fp32 train step (momentum SGD, so the momentum buffer holds the
+    step's clipped gradients) of reduced SmolLM, reduced phi3.5-moe
+    (grad_accum 2) and the reduced SmolLM GLASU split (Q 3), from the same
+    parameters and batch on the card and on the CPU: the loss and every
+    gradient at GRAD_TOL."""
+    tfm, base = mods["tfm"], mods["base"]
+    for arch, over, split in CARD_CPU_TRAIN:
+        cfg = base.get_reduced(arch).with_(optimizer="sgd", **over)
+        if split:
+            cfg = cfg.with_(glasu=mods["GlasuSplit"](*split))
+        params = tfm.init_lm(torch.Generator().manual_seed(SEED), cfg, "cpu")
+        batch = mods["synth_train_batch"](
+            cfg, mods["InputShape"]("t", 64, 2, "train"), seed=SEED)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            _, step = mods["make_train_step"](cfg, dev)
+            opt = mods["steps"].make_optimizer(cfg)
+            p = mods["tree_map"](lambda t: t.to(dev), params)
+            state = mods["steps"].TrainState(p, opt.init(p), 0)
+            res[dev] = step(state, {k: v.to(dev) for k, v in batch.items()})
+        (cs, cm), (gs, gm) = res["cpu"], res["cuda"]
+        loss_d = abs(float(gm["loss"]) - float(cm["loss"]))
+        worst = 0.0
+        for a, b in zip(mods["tree_leaves"](cs.opt_state.momentum),
+                        mods["tree_leaves"](gs.opt_state.momentum)):
+            b = b.cpu()
+            if not torch.allclose(b, a, **GRAD_TOL):
+                raise AssertionError(f"{cfg.name} card vs CPU gradients: "
+                                     f"max abs diff "
+                                     f"{float((a - b).abs().max()):.3e}")
+            worst = max(worst, float((a - b).abs().max()))
+        if not math.isclose(float(gm["loss"]), float(cm["loss"]),
+                            rel_tol=GRAD_TOL["rtol"],
+                            abs_tol=GRAD_TOL["atol"]) or gs.step != cs.step:
+            raise AssertionError(f"{cfg.name} card vs CPU loss {loss_d:.3e}")
+        print(f"train_lm: {cfg.name}{' GLASU' if split else ''} fp32 train "
+              f"step card vs CPU: loss {float(gm['loss']):.6f} (diff "
+              f"{loss_d:.3e}), gradients (the momentum buffers after step "
+              f"{gs.step}) max abs diff {worst:.3e} (rtol = atol = 1e-4)")
 
 
 def _replay(torch, captured, cuda_fn, plain_fn, bound_fn):
@@ -2850,7 +3221,8 @@ def _flash_entry(torch, lm, flash32k, flash_cases):
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:69",
         launches=lm["dense"]["launches"],
-        glasu_launches=lm["glasu"]["launches"], max_abs_err=err,
+        glasu_launches=lm["glasu"]["launches"],
+        moe_launches=lm["train"]["moe_serve"]["launches"], max_abs_err=err,
         tolerance=(f"|err| <= 2^-7 |plain| + {FLASH_BF16_ATOL:.0e} (one bf16 "
                    f"rounding; reading {excess:.3e} over 2^-7 |plain|)"),
         bf16_excess=excess,
@@ -2868,8 +3240,10 @@ def _flash_entry(torch, lm, flash32k, flash_cases):
                f"{k.shape[2]}, dh {dh}, bf16, causal); ms, plain_ms, "
                "library_ms: device time; tflops: 4·dh flops a visible (query,"
                " key) pair and head over ms; launches: the counted dense "
-               "prefill (glasu_launches: the GLASU split's)"),
-        at_32k=flash32k, fp32_kernel=flash_cases["fp32"])
+               "prefill (glasu_launches: the GLASU split's; moe_launches: "
+               "the 2-layer phi3.5-moe prefill's)"),
+        at_32k=flash32k, fp32_kernel=flash_cases["fp32"],
+        at_moe_prefill=lm["train"]["moe_serve"]["launch"])
 
 
 PHASE_S = {}
@@ -2904,7 +3278,11 @@ def main() -> int:
     from repro_torch.graph.sampler import GlasuSampler, batch_to_device
     from repro_torch.graph.synth import make_powerlaw_dataset, make_vfl_dataset
     from repro_torch.configs.base import GlasuSplit, InputShape
-    from repro_torch.core.steps import make_serve_step
+    from repro_torch.configs import base
+    from repro_torch.core import steps
+    from repro_torch.core.steps import make_serve_step, make_train_step
+    from repro_torch.data.pipeline import synth_train_batch
+    from repro_torch.models import moe
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.kernels import build, graph_agg, ops
     from repro_torch.kernels import flash_attention as flash
@@ -2937,7 +3315,10 @@ def main() -> int:
                 make_compressor=make_compressor, FaultSchedule=FaultSchedule,
                 make_backend=make_backend,
                 run_step_sequential=run_step_sequential,
-                MessageLog=MessageLog, log_agg_traffic=log_agg_traffic)
+                MessageLog=MessageLog, log_agg_traffic=log_agg_traffic,
+                make_train_step=make_train_step, steps=steps, moe=moe,
+                GlasuSplit=GlasuSplit, base=base,
+                synth_train_batch=synth_train_batch)
     served = {kernel: _timed("slice", phase_slice, torch, np, mods, name,
                              kernel)
               for name, kernel in SERVE_PRESETS.items()}
@@ -2962,6 +3343,7 @@ def main() -> int:
                           smollm_config(), 32),
           "glasu": _timed("serve", phase_serve_lm, torch, mods, "glasu",
                           split, 16)}
+    lm["train"] = _timed("train_lm", phase_train_lm, torch, mods)
     flash32k = _timed("flash32k", phase_flash_32k, torch, flash)
     _timed("result", phase_result, torch, graph_agg, trained, served,
            powerlaw, get_preset("cora-gcnii-glasu").n_layers, lm, flash32k,

@@ -19,10 +19,12 @@ by the mask (masked slots add zero). On CUDA that accumulation sorts the
 indices instead of using atomics, so a run on the card is reproducible.
 ``idx`` and ``mask`` get no gradient.
 
-``flash_attention`` is forward only: the transformer path serves, and
-nothing in the reference differentiates through its Pallas kernel (it has
-no ``custom_vjp``). On the card an input that needs a gradient raises; on
-the CPU the plain version is differentiable as written.
+``flash_attention`` is forward only, as the reference's is: its Pallas
+kernel has no ``custom_vjp``, and ``pallas_call`` has no reverse-mode rule,
+so ``jax.grad`` through it raises. The reference trains with
+``use_flash=False`` (plain chunked attention), and so does the port. On the
+card an input that needs a gradient raises; on the CPU the plain version is
+differentiable as written.
 
 ``graph_agg`` dispatches on the source-set size as the reference does: from
 ``CSR_DISPATCH_MIN_SRC`` rows on (a serving plan's level 0 on a
@@ -92,8 +94,11 @@ def flash_attention(q, k, v, causal: bool = True,
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
-            "flash attention backward not ported yet: the CUDA kernel is "
-            "forward only (run under torch.no_grad() or inference_mode)")
+            "flash attention has no backward: the CUDA kernel is forward "
+            "only, as the reference's is (pallas_call has no reverse-mode "
+            "rule, so the JAX package cannot differentiate its flash kernel "
+            "either); train with use_flash=False, or run the forward under "
+            "torch.no_grad() or inference_mode")
     return flash_attention_cuda(q, k, v, causal=causal, window=window)
 
 

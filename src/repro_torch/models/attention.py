@@ -12,7 +12,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .layers import apply_rope, dense_init, wcol, wrow
+from .layers import apply_rope, dense_init, remat, wcol, wrow
 
 NEG_INF = -1e30
 
@@ -67,9 +67,9 @@ def _sdpa_chunked(q, k, v, causal: bool, window: Optional[int],
                   chunk: int = Q_CHUNK):
     """Memory-bounded attention: a loop over query chunks so the live score
     block is (B, H, chunk, T) instead of (B, H, S, S). With a sliding window
-    only a (window + chunk) kv slice is touched. The reference scans the
-    same chunks under ``jax.checkpoint``; at inference there is nothing to
-    rematerialise."""
+    only a (window + chunk) kv slice is touched. Each chunk is recomputed
+    in the backward pass, as the reference's checkpointed scan body is, so
+    training keeps no (B, H, S, T) scores either."""
     b, s, h, dh = q.shape
     t = k.shape[1]
     pad = (-s) % chunk
@@ -94,7 +94,7 @@ def _sdpa_chunked(q, k, v, causal: bool, window: Optional[int],
             m = m & (kpos <= qpos)
         if window is not None:
             m = m & (kpos > qpos - window)
-        outs.append(_sdpa(qi, ki, vi, m[None, None]))
+        outs.append(remat(_sdpa, qi, ki, vi, m[None, None]))
     out = torch.cat(outs, dim=1)
     return out[:, :s]
 

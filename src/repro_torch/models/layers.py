@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 # ----------------------------------------------------------------- sharding
@@ -40,6 +41,18 @@ def shard_seq(x):
     """Identity: sequence-parallel residual placement needs a mesh (Queue 1
     item 7)."""
     return x
+
+
+# -------------------------------------------------------------------- remat
+def remat(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    instead of kept (the reference's ``jax.checkpoint``) while autograd
+    records; a plain call otherwise, since inference keeps nothing to
+    recompute. The recomputation runs the same ops on the same inputs, so
+    the gradients are unchanged."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # --------------------------------------------------------------------- init

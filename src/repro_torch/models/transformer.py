@@ -1,21 +1,25 @@
-"""Decoder LM assembly: the dense GQA decoder and the GLASU vertical split.
+"""Decoder LM assembly: the dense and MoE GQA decoders and the GLASU
+vertical split.
 
-Counterpart of ``repro.models.transformer`` for serving: parameter trees
-are the reference's (dicts of leaves stacked over layers), prefill is
-``lm_forward`` and decode ``lm_decode_step`` against stacked per-layer KV
-caches. The reference's ``lax.scan`` over a stack becomes a loop over the
-stacked layer axis; its rematerialisation means nothing at inference.
+Counterpart of ``repro.models.transformer``: parameter trees are the
+reference's (dicts of leaves stacked over layers), the forward pass
+(training and prefill) is ``lm_forward`` and decode ``lm_decode_step``
+against stacked per-layer KV caches. The reference's ``lax.scan`` over a
+stack becomes a loop over the stacked layer axis. Under ``cfg.remat`` a
+recorded forward recomputes its blocks in the backward pass, grouped as
+the reference's nested ``jax.checkpoint`` groups them (``_scan_stack``).
 
 GLASU-split mode (cfg.glasu): the hidden dimension is vertically
 partitioned into M feature shards ("clients"). Every ``sync_every``-th
 layer consumes the gathered full hidden state (concat aggregation); the
 other layers are block-diagonal per client (the paper's lazy aggregation
 on a transformer: K = L / sync_every aggregation layers out of L). The
-stale-update training path (``collect_stale`` / ``stale``) is not ported.
+training step's stale microsteps (``_glasu_trunk(collect_stale=, stale=)``)
+replace the gather by the cached activations.
 
-Not ported yet, and refused where a model is built or run: MoE, MLA,
-mamba2, rwkv6, encoder-decoder and dense-head configs, and the prefix
-embeddings of the VLM / audio stubs (ROADMAP Queue 1 item 2).
+Not ported yet, and refused where a model is built or run: MLA, mamba2,
+rwkv6, encoder-decoder and dense-head configs, and the prefix embeddings
+of the VLM / audio stubs (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -24,10 +28,11 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from ..tree import tree_leaves, tree_map
+from ..tree import tree_leaves, tree_map, tree_unflatten
 from . import attention as attn
-from .layers import (dense_init, embed_init, rmsnorm, rmsnorm_init, swiglu,
-                     swiglu_init, wcol)
+from . import moe as moe_lib
+from .layers import (dense_init, embed_init, remat, rmsnorm, rmsnorm_init,
+                     swiglu, swiglu_init, wcol)
 
 
 def _dtype(cfg: ArchConfig):
@@ -40,12 +45,12 @@ def _check_ported(cfg: ArchConfig):
                            (cfg.block == "mamba2", "mamba2 / zamba2"),
                            (cfg.block == "rwkv6", "rwkv6"),
                            (cfg.attn == "mla", "MLA attention"),
-                           (cfg.moe, "MoE"),
                            (cfg.n_dense_layers > 0, "a dense head stack")):
         if unported:
             raise NotImplementedError(
-                f"{cfg.name}: {what} not ported yet (the port serves dense "
-                "GQA decoders and the GLASU split; ROADMAP Queue 1 item 2)")
+                f"{cfg.name}: {what} not ported yet (the port runs dense "
+                "and MoE GQA decoders and the GLASU split; ROADMAP Queue 1 "
+                "item 4)")
 
 
 def _stack_init(fn, gen, n):
@@ -59,8 +64,12 @@ def _stack_init(fn, gen, n):
     return stack(trees)
 
 
-def _layer(stacked, i):
-    return tree_map(lambda v: v[i], stacked)
+def _unstack(stacked):
+    """The per-layer trees of a stacked tree, by one ``unbind`` a leaf: its
+    backward is one stack, where indexing each layer would add a zero-filled
+    gradient of the whole stack per layer."""
+    cols = [v.unbind(0) for v in tree_leaves(stacked)]
+    return [tree_unflatten(stacked, list(layer)) for layer in zip(*cols)]
 
 
 # =====================================================================
@@ -71,23 +80,23 @@ def _init_attn(gen, cfg: ArchConfig):
                          _dtype(cfg))
 
 
-def _no_moe(use_moe: bool):
-    if use_moe:
-        raise NotImplementedError(
-            "MoE blocks not ported yet (ROADMAP Queue 1 item 2)")
-
-
 def _init_dense_block(gen, cfg: ArchConfig, use_moe: bool):
-    _no_moe(use_moe)
     dt = _dtype(cfg)
-    return {"attn_norm": rmsnorm_init(cfg.d_model, dt, gen.device),
-            "attn": _init_attn(gen, cfg),
-            "mlp_norm": rmsnorm_init(cfg.d_model, dt, gen.device),
-            "mlp": swiglu_init(gen, cfg.d_model, cfg.d_ff, dt)}
+    p = {"attn_norm": rmsnorm_init(cfg.d_model, dt, gen.device),
+         "attn": _init_attn(gen, cfg),
+         "mlp_norm": rmsnorm_init(cfg.d_model, dt, gen.device)}
+    if use_moe:
+        p["moe"] = moe_lib.moe_init(gen, cfg.d_model, cfg.d_ff_expert,
+                                    cfg.n_experts, cfg.n_shared_experts,
+                                    cfg.d_ff_expert * cfg.n_shared_experts,
+                                    dt)
+    else:
+        p["mlp"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dt)
+    return p
 
 
 # =====================================================================
-# Dense decoder block (prefill + decode)
+# Dense / MoE decoder block (prefill + decode)
 # =====================================================================
 def _attn_prefill(p, x, cfg: ArchConfig, causal=True, window=None):
     return attn.gqa_prefill(p, x, cfg.n_heads, cfg.n_kv, cfg.d_head,
@@ -99,24 +108,34 @@ def _zero_aux(x):
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _mlp(p, h, cfg: ArchConfig, use_moe: bool):
+    """The block's MLP on the normed h: (y, aux), aux the MoE layer's
+    load-balance loss (0 for a dense SwiGLU)."""
+    if use_moe:
+        y, stats = moe_lib.moe_apply(p["moe"], h, cfg.n_experts, cfg.top_k,
+                                     cfg.capacity_factor)
+        return y, stats.aux_loss
+    return swiglu(p["mlp"], h), _zero_aux(h)
+
+
 def dense_block(p, x, cfg: ArchConfig, use_moe: bool, window=None):
-    """Pre-norm attention + SwiGLU block: (B, S, D) -> ((B, S, D), aux)."""
-    _no_moe(use_moe)
+    """Pre-norm attention + SwiGLU (or MoE) block: (B, S, D) -> ((B, S, D),
+    aux)."""
     x = x + _attn_prefill(p["attn"], rmsnorm(p["attn_norm"], x), cfg,
                           window=window)
-    y = swiglu(p["mlp"], rmsnorm(p["mlp_norm"], x))
-    return x + y, _zero_aux(x)
+    y, aux = _mlp(p, rmsnorm(p["mlp_norm"], x), cfg, use_moe)
+    return x + y, aux
 
 
 def dense_block_decode(p, x, cache, cfg: ArchConfig, use_moe: bool,
                        ring: bool):
-    _no_moe(use_moe)
     h = rmsnorm(p["attn_norm"], x)
     attn_out, cache = attn.gqa_decode(p["attn"], h, cache, cfg.n_heads,
                                       cfg.n_kv, cfg.d_head, ring=ring,
                                       rope_theta=cfg.rope_theta)
     x = x + attn_out
-    return x + swiglu(p["mlp"], rmsnorm(p["mlp_norm"], x)), cache
+    y, _ = _mlp(p, rmsnorm(p["mlp_norm"], x), cfg, use_moe)
+    return x + y, cache
 
 
 # =====================================================================
@@ -136,23 +155,54 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig, device=None):
         params = _init_glasu_lm(params, gen, cfg)
     else:
         params["blocks"] = _stack_init(
-            lambda g: _init_dense_block(g, cfg, False), gen, cfg.n_layers)
+            lambda g: _init_dense_block(g, cfg, cfg.moe), gen, cfg.n_layers)
     dev = resolve_device(device)
     return tree_map(lambda t: t.to(dev), params)
 
 
 # =====================================================================
-# Forward (prefill)
+# Forward (train / prefill)
 # =====================================================================
-def _scan_stack(block_fn, stacked_params, x):
+def _best_group(n: int) -> int:
+    """Largest divisor of n not exceeding sqrt(n) (nested-remat group
+    count)."""
+    best = 1
+    d = 1
+    while d * d <= n:
+        if n % d == 0:
+            best = d
+        d += 1
+    return best
+
+
+def _scan_stack(block_fn, stacked_params, x, do_remat: bool = False):
     """Apply a homogeneous layer stack in order: ``x, aux_i =
     block_fn(p_i, x)`` for each layer i of the stacked tree. Returns
-    (x, summed aux)."""
-    aux = _zero_aux(x)
-    for i in range(tree_leaves(stacked_params)[0].shape[0]):
-        x, a = block_fn(_layer(stacked_params, i), x)
-        aux = aux + a
-    return x, aux
+    (x, aux summed as the reference sums it).
+
+    With ``do_remat`` each block is recomputed in the backward pass, and
+    the L layers form ``_best_group(L)`` groups that are recomputed too
+    (the reference's two-level scan): G + L/G saved residuals instead of
+    L."""
+    layers = _unstack(stacked_params)
+    n_layers = len(layers)
+
+    def run(lo, hi, x):
+        auxes = []
+        for p in layers[lo:hi]:
+            x, a = remat(block_fn, p, x) if do_remat else block_fn(p, x)
+            auxes.append(a)
+        return x, torch.sum(torch.stack(auxes))
+
+    groups = _best_group(n_layers) if do_remat else 1
+    if groups <= 1:
+        return run(0, n_layers, x)
+    size = n_layers // groups
+    auxes = []
+    for g in range(groups):
+        x, a = remat(run, g * size, (g + 1) * size, x)
+        auxes.append(a)
+    return x, torch.sum(torch.stack(auxes))
 
 
 def lm_forward(params, cfg: ArchConfig, tokens, window=None,
@@ -165,11 +215,11 @@ def lm_forward(params, cfg: ArchConfig, tokens, window=None,
     window = window if window is not None else cfg.sliding_window
     x = params["emb"][tokens.long()]
     if cfg.glasu is not None:
-        x, aux_total = _glasu_trunk(params, x, cfg, window)
+        x, aux_total, _ = _glasu_trunk(params, x, cfg, window)
     else:
         x, aux_total = _scan_stack(
-            lambda p, h: dense_block(p, h, cfg, False, window),
-            params["blocks"], x)
+            lambda p, h: dense_block(p, h, cfg, cfg.moe, window),
+            params["blocks"], x, cfg.remat)
 
     x = rmsnorm(params["final_norm"], x)
     if return_hidden:
@@ -221,10 +271,9 @@ def _decode_stack(stacked, caches, x, cfg: ArchConfig, ring):
     """One token through a layer stack; the caches' k and v are updated in
     place (views of the stacked tensors), the positions returned anew."""
     new_pos = []
-    for i in range(caches.k.shape[0]):
-        x, nc = dense_block_decode(_layer(stacked, i), x,
-                                   _cache_layer(caches, i), cfg, False,
-                                   ring)
+    for i, p in enumerate(_unstack(stacked)):
+        x, nc = dense_block_decode(p, x, _cache_layer(caches, i), cfg,
+                                   cfg.moe, ring)
         new_pos.append(nc.pos)
     return x, attn.KVCache(caches.k, caches.v, torch.stack(new_pos))
 
@@ -349,30 +398,53 @@ def _glasu_local_block(p, x_loc, cfg: ArchConfig, window, positions=None,
     return x_loc, new_cache
 
 
-def _glasu_trunk(params, x, cfg: ArchConfig, window):
-    """(B, S, D) -> ((B, S, D), aux). Sync layers see the gathered hidden
-    state; local layers stay split (the stale-update path is training)."""
+def _glasu_trunk(params, x, cfg: ArchConfig, window, collect_stale=False,
+                 stale=None):
+    """(B, S, D) -> ((B, S, D), aux, stale_out). Sync layers see the
+    gathered hidden state; local layers stay split.
+
+    With ``collect_stale`` the gathered sync inputs are stacked, (n_groups,
+    B, S, D), and returned as ``stale_out`` (else ``[]``) so the training
+    step can run Q-1 collective-free stale microsteps; with ``stale`` given,
+    each group's gather is replaced by ``_replace_own_shard`` of the cached
+    activations (the paper's Extract/combine, Alg 4). Under ``cfg.remat``
+    each group is recomputed in the backward pass, as the reference's
+    checkpointed scan body is."""
     m, dm, _, _, _ = _glasu_dims(cfg)
     g = cfg.glasu
     b, s, d = x.shape
-    x_loc = x.reshape(b, s, m, dm)
-    aux = _zero_aux(x)
-    for gi in range(cfg.n_layers // g.sync_every):
-        gp = _layer(params["groups"], gi)
-        full, a = dense_block(gp["sync"], x_loc.reshape(b, s, d), cfg, False,
-                              window)
-        aux = aux + a
+
+    def group_fn(gp, stale_g, x_loc):
+        if stale_g is not None:
+            full = _replace_own_shard(stale_g, x_loc, m)
+        else:
+            full = x_loc.reshape(b, s, d)
+        full_in = full
+        full, aux = dense_block(gp["sync"], full, cfg, False, window)
         x_loc = full.reshape(b, s, m, dm)
-        for lj in range(g.sync_every - 1):
-            x_loc, _ = _glasu_local_block(_layer(gp["locals"], lj), x_loc,
-                                          cfg, window)
-    return x_loc.reshape(b, s, d), aux
+        for lp in _unstack(gp["locals"]) if g.sync_every > 1 else []:
+            x_loc, _ = _glasu_local_block(lp, x_loc, cfg, window)
+        return x_loc, aux, full_in
+
+    x_loc = x.reshape(b, s, m, dm)
+    auxes, stale_out = [], []
+    for gi, gp in enumerate(_unstack(params["groups"])):
+        args = (gp, None if stale is None else stale[gi], x_loc)
+        x_loc, a, full_in = remat(group_fn, *args) if cfg.remat \
+            else group_fn(*args)
+        auxes.append(a)
+        if collect_stale:
+            stale_out.append(full_in)
+    return (x_loc.reshape(b, s, d), torch.sum(torch.stack(auxes)),
+            torch.stack(stale_out) if collect_stale else [])
 
 
 def _replace_own_shard(full, x_loc, m):
     """Each client refreshes its own slice of the stale gathered
     activations; every client's fresh slice is present exactly once, so
-    globally this is x_loc merged back to (B, S, D)."""
+    globally this is x_loc merged back to (B, S, D). As in the reference,
+    the stale tensor contributes nothing but its shape: a stale microstep
+    computes the fresh forward (ROADMAP Queue 3)."""
     b, s, d = full.shape
     return x_loc.reshape(b, s, d)
 
@@ -389,20 +461,19 @@ def _glasu_decode(params, x, kv_caches, cfg: ArchConfig, ring):
     x_loc = x.reshape(b, 1, m, dm)
     new_pos = []
     li = 0
-    for gi in range(cfg.n_layers // g.sync_every):
-        gp = _layer(params["groups"], gi)
+    for gp in _unstack(params["groups"]):
         full, nc = dense_block_decode(gp["sync"], x_loc.reshape(b, 1, -1),
                                       _cache_layer(kv_caches, li), cfg,
                                       False, ring)
         new_pos.append(nc.pos)
         li += 1
         x_loc = full.reshape(b, 1, m, dm)
-        for lj in range(g.sync_every - 1):
+        for lp in _unstack(gp["locals"]) if g.sync_every > 1 else []:
             c = _cache_layer(kv_caches, li)
             shape = (b, cap, m, kvm, cfg.d_head)
             pos = (torch.zeros((1, 1), device=x.device) + c.pos).float()
             x_loc, (_, _, npos) = _glasu_local_block(
-                _layer(gp["locals"], lj), x_loc, cfg, None, positions=pos,
+                lp, x_loc, cfg, None, positions=pos,
                 cache=(c.k.view(shape), c.v.view(shape), c.pos), ring=ring)
             new_pos.append(npos)
             li += 1

@@ -174,6 +174,16 @@ def adamw(lr: ScalarOrSchedule, weight_decay: float = 0.01, **kw) -> Optimizer:
     return adam(lr, weight_decay=weight_decay, **kw)
 
 
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled to a global norm of at most ``max_norm``, the norm).
+    The squares are summed in fp32; the scale is cast to each gradient's
+    dtype before the multiply, so bf16 gradients stay bf16."""
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g), dtype=torch.float32)
+                           for g in tree_leaves(grads)))
+    scale = torch.clamp(max_norm / (gnorm + 1e-12), max=1.0)
+    return tree_map(lambda g: g * scale.to(g.dtype), grads), gnorm
+
+
 class AdafactorState(NamedTuple):
     step: int
     vr: Any     # factored second moment (rows)

@@ -397,7 +397,8 @@ def test_flash_cuda_kernel_strides_constant_v_and_refusals(cuda_device,
             flash.flash_attention_cuda(wide[..., 1:41], wide[..., 1:41],
                                        wide[..., 1:41])
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward not ported"):
+    with pytest.raises(NotImplementedError,
+                       match="pallas_call has no reverse-mode rule"):
         ops.flash_attention(q, k, v)
     with torch.no_grad():
         assert ops.flash_attention(q, k, v).shape == q.shape
@@ -635,3 +636,41 @@ def test_sharded_serving_on_card_matches_cpu(cuda_device):
         assert card.log.total_bytes() == card.wire_bytes
         np.testing.assert_allclose(card.per_client, other.per_client,
                                    **CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over,split", [
+    ("smollm_360m", {}, None),
+    ("phi35_moe_42b", dict(grad_accum=2), None),
+    ("smollm_360m", dict(d_ff=480), (3, 2, 3))])
+def test_lm_train_step_on_card_matches_cpu(cuda_device, arch, over, split):
+    """One fp32 train step (momentum SGD: the momentum buffer is the step's
+    clipped gradient) of reduced SmolLM, phi3.5-moe (MoE dispatch and
+    index_add_ on the card) and the SmolLM GLASU split's Q-step, from the
+    same parameters and batch on the card and on the CPU, at CARD_TOL."""
+    from repro_torch.configs.base import GlasuSplit, InputShape
+    from repro_torch.core import steps
+    from repro_torch.data.pipeline import synth_train_batch
+    cfg = get_reduced(arch).with_(optimizer="sgd", **over)
+    if split:
+        cfg = cfg.with_(glasu=GlasuSplit(*split))
+    params = tfm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = synth_train_batch(cfg, InputShape("t", 64, 2, "train"), seed=1)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        _, step = steps.make_train_step(cfg, dev)
+        p = tree_map(lambda t: t.to(dev), params)
+        state = steps.TrainState(p, steps.make_optimizer(cfg).init(p), 0)
+        out[str(dev)] = step(state, {k: v.to(dev) for k, v in batch.items()})
+    (cs, cm), (gs, gm) = out["cpu"], out["cuda"]
+    assert gs.step == cs.step == (split[2] if split else 1)
+    np.testing.assert_allclose(float(gm["loss"]), float(cm["loss"]),
+                               **CARD_TOL)
+    for a, b in zip(tree_leaves(cs.opt_state.momentum),
+                    tree_leaves(gs.opt_state.momentum)):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), **CARD_TOL)
+    # the flash kernel has no backward, as the reference's Pallas kernel
+    with pytest.raises(NotImplementedError, match="reverse-mode"):
+        _, step = steps.make_train_step(cfg.with_(use_flash=True), "cuda")
+        step(steps.TrainState(gs.params, gs.opt_state, 0),
+             {k: v.to(cuda_device) for k, v in batch.items()})

@@ -72,6 +72,8 @@ def test_every_module_imports_without_triton_or_jax():
         "m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
+    assert {"repro_torch.models.moe", "repro_torch.launch.train",
+            "repro_torch.core.steps"} <= set(mods)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"},
@@ -100,26 +102,40 @@ def test_default_device_is_cuda_and_raises_without_it():
     with pytest.raises(RuntimeError, match="cuda"):
         glasu.init_params(torch.Generator().manual_seed(0),
                           glasu.GlasuConfig())
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.core.steps import make_train_step
+    from repro_torch.launch import train
+    init, _ = make_train_step(get_reduced("smollm_360m"))
+    with pytest.raises(RuntimeError, match="is_available"):
+        init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="is_available"):
+        train.main(["--steps", "1"])
 
 
 def test_unported_training_options_raise(monkeypatch):
-    """What the port still refuses: the transformer training steps, the
-    flash kernel's backward on the card and MoE blocks. Every backend and
-    serve engine of the reference is ported and runs on the CPU."""
+    """What the port still refuses: the flash kernel's backward on the card
+    (the reference cannot differentiate its Pallas kernel either), and
+    training the transformer families it does not build: MLA, mamba2,
+    rwkv6 and encoder-decoder. Every backend and serve engine of the
+    reference is ported and runs on the CPU, and so do the dense and MoE
+    transformer training steps."""
     from repro_torch.configs.base import get_reduced
     from repro_torch.core import steps
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer as tfm
-    assert not hasattr(steps, "make_train_step")
     q = torch.zeros(1, 4, 2, 8, requires_grad=True)
     kv = torch.zeros(1, 4, 2, 8)
     monkeypatch.setattr(ops, "_device", lambda name, t: "cuda")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError,
+                       match="pallas_call has no reverse-mode rule"):
         ops.flash_attention(q, kv, kv)
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tfm.init_lm(torch.Generator().manual_seed(0),
-                    get_reduced("phi35_moe_42b"), "cpu")
+    for arch in ("deepseek_v2_lite_16b", "zamba2_1p2b", "rwkv6_7b",
+                 "seamless_m4t_large_v2"):
+        init, _ = steps.make_train_step(get_reduced(arch), "cpu")
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            init(torch.Generator().manual_seed(0))
+    init, step = steps.make_train_step(get_reduced("phi35_moe_42b"), "cpu")
+    assert init(torch.Generator().manual_seed(0)).step == 0
     tiny = dict(dataset="tiny", hidden=8, batch_size=8, size_cap=96)
     with pytest.raises(ValueError, match="unknown backend"):
         make_backend("mpi")

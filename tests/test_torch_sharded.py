@@ -438,26 +438,31 @@ def test_sharded_save_resume_is_bitwise(tmp_path):
     kw = _kw("gcnii", "mean", optimizer="adam", rounds=6, eval_every=2,
              backend="sharded", faults=DEADLINE, compression=INT8)
     w = _world(kw)
+    threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    cfg = w["tcfg"].with_(ckpt_dir=str(tmp_path / "ck"), ckpt_every=2)
-    first = Trainer(cfg.with_(rounds=4), hooks=[_Inject(w["params"])],
-                    device="cpu")
-    first.run()
-    first.close()
-    resumed_trainer = Trainer(cfg, hooks=[_Inject(w["params"])],
-                              device="cpu")
-    resumed = resumed_trainer.run()
-    resumed_trainer.close()
-    assert resumed_trainer.sampler_restored
-    assert resumed_trainer.fault_sched_restored
-    whole_trainer = Trainer(w["tcfg"], hooks=[_Inject(w["params"])],
-                            device="cpu")
-    whole = whole_trainer.run()
-    whole_trainer.close()
-    assert resumed.comm_bytes == whole.comm_bytes
-    for a, b in zip(tree_leaves(resumed.params), tree_leaves(whole.params)):
-        assert torch.equal(a, b)
-    assert [e["round"] for e in resumed.history] == [2, 4, 6]
+    try:
+        cfg = w["tcfg"].with_(ckpt_dir=str(tmp_path / "ck"), ckpt_every=2)
+        first = Trainer(cfg.with_(rounds=4), hooks=[_Inject(w["params"])],
+                        device="cpu")
+        first.run()
+        first.close()
+        resumed_trainer = Trainer(cfg, hooks=[_Inject(w["params"])],
+                                  device="cpu")
+        resumed = resumed_trainer.run()
+        resumed_trainer.close()
+        assert resumed_trainer.sampler_restored
+        assert resumed_trainer.fault_sched_restored
+        whole_trainer = Trainer(w["tcfg"], hooks=[_Inject(w["params"])],
+                                device="cpu")
+        whole = whole_trainer.run()
+        whole_trainer.close()
+        assert resumed.comm_bytes == whole.comm_bytes
+        for a, b in zip(tree_leaves(resumed.params),
+                        tree_leaves(whole.params)):
+            assert torch.equal(a, b)
+        assert [e["round"] for e in resumed.history] == [2, 4, 6]
+    finally:
+        torch.set_num_threads(threads)
 
 
 # ---------------------------------------------------------------- serving
