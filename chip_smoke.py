@@ -141,6 +141,19 @@ Phases, each printing its own lines:
             one fp32 train step each of reduced SmolLM, phi3.5-moe
             (grad_accum 2) and the SmolLM GLASU split (Q 3) on the card
             against the CPU: loss and every gradient at rtol = atol = 1e-4;
+   families the five other transformer families at their published widths
+            (bf16, seed-0 weights), one on the card at a time:
+            deepseek-v2-lite (MLA + dense head + MoE), zamba2-1.2b (Mamba2
+            + a shared attention block), rwkv6-7b, seamless-m4t-large-v2
+            (encoder-decoder) and pixtral-12b (a 1024-patch prefix). Each
+            served at full depth: a B 2 x S 2048 prefill with exactly 0 / 6
+            / 0 / 48 / 40 flash launches, cold and median ms, its last-
+            position logits against the plain version on the card (3e-2),
+            the first flash launch timed beside SDPA, 16 greedy decode
+            steps; each trained 3 AdamW steps at a depth cut to fit one card
+            (finite losses, step ms, tokens/s, peak memory); then each
+            reduced config in fp32 on the card against the CPU (prefill
+            logits, one SGD step's loss and gradients, 1e-4);
 8. flash32k one flash launch at the 32k serving shape (B 1, S 32768, H 15,
             Kv 5, dh 64, bf16) against the plain version (one bf16
             rounding, as on the main path), its bound and one
@@ -2793,11 +2806,12 @@ def _train_run(torch, mods, cfg, batch, calls, label):
     return state, step, losses, metrics, ms, peak
 
 
-def _steps_line(label, cfg, n_params, tokens, losses, ms, peak):
+def _steps_line(label, cfg, n_params, tokens, losses, ms, peak,
+                prefix="train_lm"):
     """One line of a training run: widths, losses, cold and median host ms
     a train-step call, tokens/s, peak device memory."""
     med = statistics.median(ms[1:])
-    print(f"train_lm: {label} {cfg.n_layers} layers d_model {cfg.d_model} "
+    print(f"{prefix}: {label} {cfg.n_layers} layers d_model {cfg.d_model} "
           f"heads {cfg.n_heads}/{cfg.n_kv} dh {cfg.d_head} vocab {cfg.vocab} "
           f"{cfg.dtype} remat {cfg.remat} {cfg.optimizer}, {n_params} "
           f"parameters, {tokens} tokens a call: losses "
@@ -2960,36 +2974,13 @@ def _moe_serve(torch, mods):
                                  f"version: {err:.3e} > {PREFILL_LOGIT_ATOL}")
         with _Capture(ops, "flash_attention_cuda", limit=1) as cap:
             _prefill_logits(tfm, params, cfg, toks)
-        (args, kw), = cap.calls
-        q, k, v = args
-        got = flash.flash_attention_cuda(q, k, v, **kw)
-        kerr, excess = _check_flash_bf16(
-            "phi3.5-moe flash launch", got,
-            flash.flash_attention_plain(q, k, v, **kw))
-        b, s, h, dh = q.shape
-        bound_ms, bound_by, _, _ = _flash_bound(
-            b, s, k.shape[1], h, k.shape[2], dh, kw["causal"], kw["window"],
-            "bfloat16")
-        launch = dict(
-            shape=f"B {b}, S = T = {s}, H {h}, Kv {k.shape[2]}, dh {dh}, "
-                  "bf16, causal",
-            max_abs_err=kerr, bf16_excess=excess,
-            ms=_time_ms(torch, lambda: flash.flash_attention_cuda(q, k, v,
-                                                                  **kw)),
-            plain_ms=_time_ms(torch, lambda: flash.flash_attention_plain(
-                q, k, v, **kw), reps=5),
-            bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=_time_ms(torch, lambda: _sdpa_library(
-                torch, q, k, v, kw["causal"])))
+        launch = _flash_launch(torch, flash, cap.calls[0],
+                               "phi3.5-moe flash launch")
         print(f"train_lm: phi3.5-moe serve {cfg.n_layers} layers, prefill "
-              f"B={b} S={s}: {launches} flash launches, {ms:.1f} ms; last-"
-              f"position logits vs the plain version on the card {err:.3e} "
-              f"(<= {PREFILL_LOGIT_ATOL}); layer 0's launch ("
-              f"{launch['shape']}) vs plain {kerr:.3e} (one bf16 rounding), "
-              f"{launch['ms']:.4f} "
-              f"ms (plain {launch['plain_ms']:.4f}, SDPA "
-              f"{launch['library_ms']:.4f}, bound {bound_ms:.4f} by "
-              f"{bound_by})")
+              f"B={MOE_SERVE_B} S={MOE_SERVE_S}: {launches} flash launches, "
+              f"{ms:.1f} ms; last-position logits vs the plain version on the "
+              f"card {err:.3e} (<= {PREFILL_LOGIT_ATOL}); layer 0's launch "
+              f"{_launch_text(launch)}")
         caches = tfm.init_caches(cfg, MOE_SERVE_B, depth,
                                  prefill_len=MOE_SERVE_S, device="cuda")
         tok = logits.argmax(-1, keepdim=True).to(torch.int32)
@@ -3017,14 +3008,46 @@ def _moe_serve(torch, mods):
                 launch=launch)
 
 
-def _train_card_vs_cpu(torch, mods):
+def _flash_launch(torch, flash, call, what):
+    """One captured bf16 flash launch (args, kw) of a main path: the kernel
+    against the plain version (one bf16 rounding), its device time beside
+    the plain version's, SDPA's and the bound."""
+    (q, k, v), kw = call
+    got = flash.flash_attention_cuda(q, k, v, **kw)
+    kerr, excess = _check_flash_bf16(
+        what, got, flash.flash_attention_plain(q, k, v, **kw))
+    b, s, h, dh = q.shape
+    bound_ms, bound_by, _, _ = _flash_bound(
+        b, s, k.shape[1], h, k.shape[2], dh, kw["causal"], kw["window"],
+        "bfloat16")
+    return dict(
+        shape=f"B {b}, S = T = {s}, H {h}, Kv {k.shape[2]}, dh {dh}, bf16, "
+              + ("causal" if kw["causal"] else "bidirectional"),
+        max_abs_err=kerr, bf16_excess=excess,
+        ms=_time_ms(torch, lambda: flash.flash_attention_cuda(q, k, v, **kw)),
+        plain_ms=_time_ms(torch, lambda: flash.flash_attention_plain(
+            q, k, v, **kw), reps=5),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=_time_ms(torch, lambda: _sdpa_library(
+            torch, q, k, v, kw["causal"])))
+
+
+def _launch_text(launch):
+    return (f"({launch['shape']}) vs plain {launch['max_abs_err']:.3e} (one "
+            f"bf16 rounding), {launch['ms']:.4f} ms (plain "
+            f"{launch['plain_ms']:.4f}, SDPA {launch['library_ms']:.4f}, "
+            f"bound {launch['bound_ms']:.4f} by {launch['bound_by']})")
+
+
+def _train_card_vs_cpu(torch, mods, cases=CARD_CPU_TRAIN,
+                       prefix="train_lm"):
     """One fp32 train step (momentum SGD, so the momentum buffer holds the
     step's clipped gradients) of reduced SmolLM, reduced phi3.5-moe
     (grad_accum 2) and the reduced SmolLM GLASU split (Q 3), from the same
     parameters and batch on the card and on the CPU: the loss and every
     gradient at GRAD_TOL."""
     tfm, base = mods["tfm"], mods["base"]
-    for arch, over, split in CARD_CPU_TRAIN:
+    for arch, over, split in cases:
         cfg = base.get_reduced(arch).with_(optimizer="sgd", **over)
         if split:
             cfg = cfg.with_(glasu=mods["GlasuSplit"](*split))
@@ -3053,10 +3076,289 @@ def _train_card_vs_cpu(torch, mods):
                             rel_tol=GRAD_TOL["rtol"],
                             abs_tol=GRAD_TOL["atol"]) or gs.step != cs.step:
             raise AssertionError(f"{cfg.name} card vs CPU loss {loss_d:.3e}")
-        print(f"train_lm: {cfg.name}{' GLASU' if split else ''} fp32 train "
+        print(f"{prefix}: {cfg.name}{' GLASU' if split else ''} fp32 train "
               f"step card vs CPU: loss {float(gm['loss']):.6f} (diff "
               f"{loss_d:.3e}), gradients (the momentum buffers after step "
               f"{gs.step}) max abs diff {worst:.3e} (rtol = atol = 1e-4)")
+
+
+# ------------------------------------------------- the transformer families
+# Each family at its published widths, as the reference's own history
+# recorded them (git show 45395fd:src/repro/configs/<id>.py); the repo
+# registers only their reduced variants. Served at full depth: a B 2 x S
+# 2048 bf16 prefill (seamless: a 2048-frame source and 2048 target tokens;
+# pixtral: 1024 patch embeddings and 1024 tokens), FAMILY_DECODE_STEPS greedy
+# steps after it
+FAMILY_B, FAMILY_S, FAMILY_DECODE_STEPS, FAMILY_PREFILL_REPS = 2, 2048, 16, 3
+FAMILY_TRAIN_STEPS = 3
+
+
+def deepseek_v2_lite_config(**kw):
+    """DeepSeek-V2-Lite: 27 layers (layer 0 dense, d_ff 10944), d_model
+    2048, MLA with 16 heads (kv_lora 512, d_nope 128, d_rope 64, d_v 128),
+    64 experts top-6 + 2 shared of 1408, vocab 102400, grad_accum 2."""
+    from repro_torch.configs.base import ArchConfig
+    return ArchConfig(**{**dict(
+        name="deepseek-v2-lite-16b", kind="moe", n_layers=27, d_model=2048,
+        n_heads=16, n_kv=16, d_head=128, d_ff=10944, vocab=102400, moe=True,
+        n_experts=64, top_k=6, n_shared_experts=2, d_ff_expert=1408,
+        n_dense_layers=1, attn="mla", kv_lora=512, d_nope=128, d_rope=64,
+        grad_accum=2, dtype="bfloat16", optimizer="adamw", lr=2e-4), **kw})
+
+
+def zamba2_config(**kw):
+    """Zamba2-1.2B: 38 Mamba2 layers (d_model 2048, d_state 64, 64 SSM heads
+    of 64, ssm_chunk 256), one weight-shared attention + MLP block after
+    every 6 (32 heads of 64, d_ff 8192), vocab 32000."""
+    from repro_torch.configs.base import ArchConfig
+    return ArchConfig(**{**dict(
+        name="zamba2-1.2b", kind="hybrid", n_layers=38, d_model=2048,
+        n_heads=32, n_kv=32, d_head=64, d_ff=8192, vocab=32000,
+        block="mamba2", d_state=64, ssm_heads=64, ssm_head_dim=64,
+        attn_every=6, dtype="bfloat16", optimizer="adamw", lr=3e-4), **kw})
+
+
+def rwkv6_config(**kw):
+    """RWKV-6 "Finch" 7B: 32 layers, d_model 4096 (64 heads of 64), channel
+    mix d_ff 14336, vocab 65536, grad_accum 2."""
+    from repro_torch.configs.base import ArchConfig
+    return ArchConfig(**{**dict(
+        name="rwkv6-7b", kind="ssm", n_layers=32, d_model=4096, n_heads=0,
+        n_kv=0, d_head=0, d_ff=14336, vocab=65536, attn="none",
+        block="rwkv6", ssm_heads=64, ssm_head_dim=64, grad_accum=2,
+        dtype="bfloat16", optimizer="adamw", lr=3e-4), **kw})
+
+
+def seamless_config(**kw):
+    """SeamlessM4T-Large v2's backbone: 24 encoder + 24 decoder layers,
+    d_model 1024, 16 heads of 64, d_ff 8192, vocab 256206; the audio
+    frontend is a stub (source frame embeddings)."""
+    from repro_torch.configs.base import ArchConfig
+    return ArchConfig(**{**dict(
+        name="seamless-m4t-large-v2", kind="audio", n_layers=24,
+        enc_layers=24, dec_layers=24, d_model=1024, n_heads=16, n_kv=16,
+        d_head=64, d_ff=8192, vocab=256206, frontend="audio",
+        frontend_tokens=0, dtype="bfloat16", optimizer="adamw", lr=1e-4),
+        **kw})
+
+
+def pixtral_config(**kw):
+    """Pixtral-12B's language backbone: 40 layers, d_model 5120, 32 / 8
+    heads of 128, d_ff 14336, vocab 131072, rope theta 1e6, 1024 patch
+    embeddings (the vision tower is a stub), grad_accum 4."""
+    from repro_torch.configs.base import ArchConfig
+    return ArchConfig(**{**dict(
+        name="pixtral-12b", kind="vlm", n_layers=40, d_model=5120,
+        n_heads=32, n_kv=8, d_head=128, d_ff=14336, vocab=131072,
+        frontend="vision", frontend_tokens=1024, grad_accum=4,
+        rope_theta=1e6, dtype="bfloat16", optimizer="adamw", lr=2e-4), **kw})
+
+
+# label -> (published config, flash launches of a full-depth prefill: one
+# per attention layer it runs; training: depth overrides, B, S). Training
+# depths are cut to what AdamW's fp32 state leaves room for on one 80 GB
+# card (the foreach AdamW peaks at ~42 bytes a parameter): deepseek keeps
+# its dense head and 1 MoE layer (~1.07 B), rwkv6 2 layers (~0.94 B),
+# seamless 4 + 4 (~0.78 B, its vocab 256206 dominates), pixtral 1 layer
+# (~1.61 B, without gradient accumulation, whose summed-gradient tree would
+# add two bf16 copies of them); zamba2 trains at full depth (~1.17 B)
+FAMILIES = {
+    "deepseek": (deepseek_v2_lite_config, 0, dict(n_layers=2), 4, 2048),
+    "zamba2": (zamba2_config, 38 // 6, {}, 2, 2048),
+    "rwkv6": (rwkv6_config, 0, dict(n_layers=2), 4, 2048),
+    "seamless": (seamless_config, 48, dict(n_layers=4, enc_layers=4,
+                                           dec_layers=4), 4, 2048),
+    "pixtral": (pixtral_config, 40, dict(n_layers=1, grad_accum=1), 2,
+                2048)}
+# fp32 card vs CPU: each family's reduced config (zamba2 at 5 layers: two
+# groups and a tail, as tests/test_torch_families.py runs it)
+FAMILY_CARD_CPU = (("deepseek_v2_lite_16b", {}, None),
+                   ("zamba2_1p2b", dict(n_layers=5), None),
+                   ("rwkv6_7b", {}, None), ("seamless_m4t_large_v2", {}, None),
+                   ("pixtral_12b", {}, None))
+
+
+def _family_inputs(torch, mods, cfg, b, s, seed=SEED):
+    """The prefill's inputs on the card: TokenStream tokens, plus the
+    2048-frame source (seamless) or the 1024 patch embeddings ahead of
+    s - 1024 tokens (pixtral), drawn from a seeded generator in bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, cfg.dtype)
+    n_tok = s - cfg.frontend_tokens if cfg.frontend == "vision" else s
+    toks, _ = mods["TokenStream"](cfg.vocab, seed=seed).batch(b, n_tok)
+    out = {"tokens": toks.to("cuda")}
+    if cfg.is_encdec:
+        out["src_embeds"] = torch.randn((b, s, cfg.d_model), generator=gen,
+                                        device="cuda").to(dt)
+    elif cfg.frontend == "vision":
+        out["embeds"] = torch.randn((b, cfg.frontend_tokens, cfg.d_model),
+                                    generator=gen, device="cuda").to(dt)
+    return out
+
+
+def _family_logits(tfm, params, cfg, inp):
+    """Prefill, then the last position @ unemb: (B, vocab)."""
+    hidden, _ = tfm.lm_forward(params, cfg, return_hidden=True, **inp)
+    return hidden[:, -1] @ params["unemb"]
+
+
+def _family_serve(torch, mods, label, cfg, want_launches):
+    """Serves ``cfg`` (bf16, seed-0 weights) at full depth: a counted
+    prefill (exactly ``want_launches`` flash launches, no other kernel),
+    cold and median ms, its last-position logits against the plain version
+    on the card, the first flash launch timed beside SDPA, then greedy
+    decode steps through make_serve_step's step (the caches are the
+    reference's stand-in: zeros for the prompt, which lm_forward does not
+    return)."""
+    tfm, flash, ops = mods["tfm"], mods["flash"], mods["ops"]
+    graph_agg = mods["graph_agg"]
+    b, s = FAMILY_B, FAMILY_S
+    depth = s + FAMILY_DECODE_STEPS
+    _, step = mods["make_serve_step"](
+        cfg, mods["InputShape"]("serve", depth, b, "decode"), device="cuda")
+    params, init_ms = _host_ms(torch, lambda: tfm.init_lm(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, "cuda"))
+    n_params = sum(t.numel() for t in mods["tree_leaves"](params))
+    inp = _family_inputs(torch, mods, cfg, b, s)
+    torch.cuda.reset_peak_memory_stats()        # the prefill's, not init's
+    fwd = lambda: _family_logits(tfm, params, cfg, inp)
+    positions = b * (2 * s if cfg.is_encdec else s)
+    out = {}
+    with torch.inference_mode():
+        _zero_counts(graph_agg)                          # ---- counted run
+        logits, cold_ms = _host_ms(torch, fwd)
+        counts = _counts(graph_agg)                      # ---- read counts
+        launches = counts.pop("flash_attention_cuda")
+        if launches != want_launches or any(counts.values()):
+            raise AssertionError(f"{label} prefill: {launches} flash launches"
+                                 f" (want {want_launches}), others {counts}")
+        if logits.shape != (b, cfg.vocab) or \
+                not bool(logits.float().isfinite().all()):
+            raise AssertionError(f"{label}: bad prefill logits "
+                                 f"{tuple(logits.shape)}")
+        med = statistics.median(_host_ms(torch, fwd)[1]
+                                for _ in range(FAMILY_PREFILL_REPS))
+        plain = lambda q, k, v, **kw: flash.flash_attention_plain(q, k, v,
+                                                                  **kw)
+        with _swapped(ops, "flash_attention_cuda", plain):
+            want = fwd()
+        err = float((logits.float() - want.float()).abs().max())
+        if err > PREFILL_LOGIT_ATOL:
+            raise AssertionError(f"{label}: prefill logits through the kernel"
+                                 f" vs the plain version: max abs diff "
+                                 f"{err:.3e} > {PREFILL_LOGIT_ATOL}")
+        peak = torch.cuda.max_memory_allocated()
+        launch_txt = "no flash launch (the reference's path runs none)"
+        if want_launches:
+            with _Capture(ops, "flash_attention_cuda", limit=1) as cap:
+                fwd()
+            out["launch"] = _flash_launch(torch, flash, cap.calls[0],
+                                          f"{label} flash launch")
+            launch_txt = "the first launch " + _launch_text(out["launch"])
+        src = f" (source) + {s} (target)" if cfg.is_encdec else ""
+        print(f"families: {label} serve {cfg.name}, {n_params} parameters "
+              f"(drawn on the card in {init_ms:.1f} ms), prefill B={b} S={s}"
+              f"{src}: {launches} flash launches, cold {cold_ms:.1f} ms, "
+              f"median of {FAMILY_PREFILL_REPS} {med:.1f} ms "
+              f"({positions / med * 1e3:.0f} positions/s); last-position logits vs the plain version on "
+              f"the card: max abs diff {err:.3e} (<= {PREFILL_LOGIT_ATOL}); "
+              f"peak device memory {_gib(peak)}; {launch_txt}")
+
+        enc = tfm.encode(params, cfg, inp["src_embeds"]) \
+            if cfg.is_encdec else None
+        caches = tfm.init_caches(cfg, b, depth, prefill_len=s, device="cuda")
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        step_ms, gen = [], []
+        _zero_counts(graph_agg)
+        for _ in range(FAMILY_DECODE_STEPS):
+            (tok, caches), t = _host_ms(torch, lambda: step(params, caches,
+                                                            tok, enc))
+            step_ms.append(t)
+            gen.append(tok)
+        dcounts = _counts(graph_agg)
+        gen = torch.cat(gen, dim=1)
+        pos = [c.pos for c in caches.values() if hasattr(c, "pos")]
+        if any(dcounts.values()) or not all(bool((p == depth).all())
+                                            for p in pos) or \
+                not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
+            raise AssertionError(f"{label} decode: launches {dcounts}, "
+                                 f"positions {[p.tolist() for p in pos]}")
+        dmed = statistics.median(step_ms)
+        print(f"families: {label} decode {FAMILY_DECODE_STEPS} greedy steps, "
+              f"B={b}, positions {s}..{depth - 1}: median {dmed:.3f} ms a "
+              f"step ({b / dmed * 1e3:.0f} tokens/s), first {step_ms[0]:.3f} "
+              f"ms; no kernel launch")
+    del params, caches, inp, enc
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"families: {label} device memory still allocated after the model"
+          f" is dropped: {_gib(held)}")
+    out.update(launches=launches, cold_ms=cold_ms, prefill_ms=med,
+               logit_err=err, decode_ms=dmed, peak=peak, held=held)
+    return out
+
+
+def _family_train(torch, mods, label, cfg, b, s):
+    """FAMILY_TRAIN_STEPS AdamW steps (bf16, remat, plain attention) on one
+    synth_train_batch batch at the published widths: finite losses, no
+    kernel launch; step ms, tokens/s, peak memory."""
+    batch = mods["synth_train_batch"](
+        cfg, mods["InputShape"]("train", s, b, "train"), seed=SEED)
+    batch = {k: v.to("cuda") for k, v in batch.items()}
+    state, _, losses, _, ms, peak = _train_run(
+        torch, mods, cfg, batch, FAMILY_TRAIN_STEPS, f"{label} training")
+    n_params = sum(t.numel() for t in mods["tree_leaves"](state.params))
+    tokens = b * (2 * s if cfg.is_encdec else s)
+    _steps_line(f"{label} encoder {cfg.enc_layers} + decoder"
+                if cfg.is_encdec else label, cfg, n_params, tokens, losses,
+                ms, peak, prefix="families")
+    del state, batch
+    torch.cuda.empty_cache()
+    return dict(ms=statistics.median(ms[1:]), peak=peak, n_params=n_params,
+                n_layers=cfg.n_layers)
+
+
+def _families_card_vs_cpu(torch, mods):
+    """Each family's reduced config in fp32: the prefill logits on the card
+    against the CPU (plain attention), then one momentum-SGD train step
+    (loss and every gradient), at GRAD_TOL."""
+    tfm, base = mods["tfm"], mods["base"]
+    for arch, over, _ in FAMILY_CARD_CPU:
+        cfg = base.get_reduced(arch).with_(**over)
+        params = tfm.init_lm(torch.Generator().manual_seed(SEED), cfg, "cpu")
+        inp = {k: v.float().cpu() if v.is_floating_point() else v.cpu()
+               for k, v in _family_inputs(torch, mods, cfg, 2, 64).items()}
+        with torch.inference_mode():
+            want, _ = tfm.lm_forward(params, cfg, **inp)
+            got, _ = tfm.lm_forward(
+                mods["tree_map"](lambda t: t.to("cuda"), params), cfg,
+                **{k: v.to("cuda") for k, v in inp.items()})
+        err = float((got.cpu() - want).abs().max())
+        if not torch.allclose(got.cpu(), want, **GRAD_TOL):
+            raise AssertionError(f"{cfg.name} fp32 prefill card vs CPU: "
+                                 f"{err:.3e}")
+        print(f"families: {cfg.name} fp32 prefill card vs CPU: max abs diff "
+              f"{err:.3e} (rtol = atol = 1e-4)")
+    _train_card_vs_cpu(torch, mods, FAMILY_CARD_CPU, prefix="families")
+
+
+def phase_families(torch, mods):
+    """The five families at their published widths: served at full depth
+    (one model on the card at a time), trained at the cut depths, and held
+    to the CPU in fp32 at their reduced configs."""
+    out, part_s, t0 = {}, {}, time.perf_counter()
+    for label, (make, launches, cut, b, s) in FAMILIES.items():
+        out[label] = _family_serve(torch, mods, label, make(use_flash=True),
+                                   launches)
+        out[label]["train"] = _family_train(torch, mods, label,
+                                            make(**cut), b, s)
+        part_s[label] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    _families_card_vs_cpu(torch, mods)
+    part_s["card vs CPU"] = time.perf_counter() - t0
+    print("families: host seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in part_s.items()))
+    return out
 
 
 def _replay(torch, captured, cuda_fn, plain_fn, bound_fn):
@@ -3222,7 +3524,10 @@ def _flash_entry(torch, lm, flash32k, flash_cases):
         replaces="src/repro/kernels/flash_attention.py:69",
         launches=lm["dense"]["launches"],
         glasu_launches=lm["glasu"]["launches"],
-        moe_launches=lm["train"]["moe_serve"]["launches"], max_abs_err=err,
+        moe_launches=lm["train"]["moe_serve"]["launches"],
+        family_launches={label: fam["launches"]
+                         for label, fam in lm["families"].items()},
+        max_abs_err=err,
         tolerance=(f"|err| <= 2^-7 |plain| + {FLASH_BF16_ATOL:.0e} (one bf16 "
                    f"rounding; reading {excess:.3e} over 2^-7 |plain|)"),
         bf16_excess=excess,
@@ -3241,9 +3546,13 @@ def _flash_entry(torch, lm, flash32k, flash_cases):
                "library_ms: device time; tflops: 4·dh flops a visible (query,"
                " key) pair and head over ms; launches: the counted dense "
                "prefill (glasu_launches: the GLASU split's; moe_launches: "
-               "the 2-layer phi3.5-moe prefill's)"),
+               "the 2-layer phi3.5-moe prefill's; family_launches: each "
+               "family's full-depth B 2 x S 2048 prefill)"),
         at_32k=flash32k, fp32_kernel=flash_cases["fp32"],
-        at_moe_prefill=lm["train"]["moe_serve"]["launch"])
+        at_moe_prefill=lm["train"]["moe_serve"]["launch"],
+        at_family_prefill={label: fam["launch"]
+                           for label, fam in lm["families"].items()
+                           if "launch" in fam})
 
 
 PHASE_S = {}
@@ -3344,6 +3653,7 @@ def main() -> int:
           "glasu": _timed("serve", phase_serve_lm, torch, mods, "glasu",
                           split, 16)}
     lm["train"] = _timed("train_lm", phase_train_lm, torch, mods)
+    lm["families"] = _timed("families", phase_families, torch, mods)
     flash32k = _timed("flash32k", phase_flash_32k, torch, flash)
     _timed("result", phase_result, torch, graph_agg, trained, served,
            powerlaw, get_preset("cora-gcnii-glasu").n_layers, lm, flash32k,

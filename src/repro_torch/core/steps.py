@@ -12,9 +12,6 @@ gathered activations; microsteps 1..Q-1 are stale updates on the same batch
 ``make_serve_step(cfg, shape)`` -> (init_serve_state, serve_step): one-token
 greedy decode against the per-layer caches (a ring buffer under a sliding
 window).
-
-The reference's prefix ``embeds`` (VLM stub) and ``src_embeds``
-(encoder-decoder) batches are not ported (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -86,13 +83,17 @@ def chunked_ce_head(unemb, hidden, labels, vocab: int, chunk: int = 512):
 
 
 def _loss_fn(params, batch, cfg: ArchConfig):
-    """(CE + router_aux_weight · aux, (CE, aux)) of a token batch."""
-    if cfg.is_encdec or cfg.frontend == "vision":
-        raise NotImplementedError(
-            f"{cfg.name}: training on prefix embeddings (src_embeds / "
-            "patch_embeds) not ported yet (ROADMAP Queue 1 item 4)")
+    """(CE + router_aux_weight · aux, (CE, aux)) of a batch: ``tokens``
+    and ``labels``, plus ``src_embeds`` for the encoder-decoder or
+    ``patch_embeds`` (the prefix; labels cover prefix and tokens) for the
+    vision stub."""
+    kwargs = {}
+    if cfg.is_encdec:
+        kwargs["src_embeds"] = batch["src_embeds"]
+    elif cfg.frontend == "vision":
+        kwargs["embeds"] = batch["patch_embeds"]
     hidden, aux = tfm.lm_forward(params, cfg, tokens=batch["tokens"],
-                                 return_hidden=True)
+                                 return_hidden=True, **kwargs)
     loss = chunked_ce_head(params["unemb"], hidden, batch["labels"],
                            cfg.vocab)
     return loss + cfg.router_aux_weight * aux, (loss, aux)
@@ -125,7 +126,8 @@ def make_train_step(cfg: ArchConfig, device=None):
     parameters from the ``torch.Generator`` ``gen`` onto ``device``
     (default: CUDA) and a fresh optimizer state; ``train_step(state,
     batch)`` takes one step on a batch of ``tokens`` and ``labels`` (B, S)
-    and returns (state, {"loss", "aux", "grad_norm"})."""
+    (and the prefix embeddings ``_loss_fn`` takes) and returns (state,
+    {"loss", "aux", "grad_norm"})."""
     optimizer = make_optimizer(cfg)
 
     def init_state(gen) -> TrainState:
@@ -209,7 +211,8 @@ def make_serve_step(cfg: ArchConfig, shape: InputShape, device=None):
     the parameters from ``gen`` and makes ``shape.seq_len``-deep caches
     marked as holding ``seq_len - 1`` tokens (the reference's prefilled
     stand-in), both on ``device`` (default: CUDA). ``serve_step(params,
-    caches, token)`` decodes one token (B, 1) -> (next_token, caches)."""
+    caches, token, enc_out=None)`` decodes one token (B, 1) ->
+    (next_token, caches); the encoder-decoder passes its encoder output."""
 
     def init_serve_state(gen):
         params = tfm.init_lm(gen, cfg, device)
@@ -218,7 +221,8 @@ def make_serve_step(cfg: ArchConfig, shape: InputShape, device=None):
                                  device=device)
         return params, caches
 
-    def serve_step(params, caches, token):
-        return tfm.lm_decode_step(params, caches, cfg, token)
+    def serve_step(params, caches, token, enc_out=None):
+        return tfm.lm_decode_step(params, caches, cfg, token,
+                                  enc_out=enc_out)
 
     return init_serve_state, serve_step

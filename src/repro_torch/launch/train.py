@@ -3,9 +3,11 @@
 Counterpart of ``repro.launch.train``: real optimization steps for an
 ``--arch`` (its reduced variant; no full config is registered, so
 ``--full`` fails as the reference's ``get_arch`` does) on synthetic token
-streams, with periodic metrics and npz checkpoints in the reference's
-layout (``core.checkpoint``: a state saved by either package resumes in
-the other). Runs on the GPU unless ``--device cpu`` is given.
+streams (the encoder-decoder and vision configs on ``synth_train_batch``
+batches, which carry their source or prefix embeddings), with periodic
+metrics and npz checkpoints in the reference's layout
+(``core.checkpoint``: a state saved by either package resumes in the
+other). Runs on the GPU unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_360m \\
         --steps 50 --batch 4 --seq 128 --ckpt-dir /tmp/ckpt
@@ -17,10 +19,10 @@ import time
 
 import torch
 
-from ..configs.base import ARCH_IDS, get_arch, get_reduced
+from ..configs.base import ARCH_IDS, InputShape, get_arch, get_reduced
 from ..core import checkpoint
 from ..core.steps import make_train_step
-from ..data.pipeline import TokenStream
+from ..data.pipeline import TokenStream, synth_train_batch
 from ..device import resolve_device
 
 
@@ -53,11 +55,16 @@ def main(argv=None):
         state = checkpoint.restore(args.ckpt_dir, state)
         print(f"[train] resumed at step {int(state.step)}")
 
+    shape = InputShape("cli", args.seq, args.batch, "train")
     stream = TokenStream(cfg.vocab, seed=0)
     t0 = time.time()
     for i in range(args.steps):
-        tokens, labels = stream.batch(args.batch, args.seq)
-        batch = {"tokens": tokens.to(device), "labels": labels.to(device)}
+        if cfg.is_encdec or cfg.frontend == "vision":
+            batch = synth_train_batch(cfg, shape, seed=i)
+        else:
+            tokens, labels = stream.batch(args.batch, args.seq)
+            batch = {"tokens": tokens, "labels": labels}
+        batch = {k: v.to(device) for k, v in batch.items()}
         state, metrics = train_step(state, batch)
         if i % 10 == 0 or i == args.steps - 1:
             print(f"step {int(state.step):5d} "

@@ -88,6 +88,15 @@ def layernorm_init(d, dtype=torch.float32, device=None):
             "b": torch.zeros((d,), dtype=dtype, device=device)}
 
 
+def layernorm(p, x, eps=1e-5):
+    """Mean and (population) variance in fp32; the normalised x is cast
+    back to x's dtype before the affine."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * p["g"] + p["b"]
+
+
 # --------------------------------------------------------------------- rope
 def rope_freqs(d_head: int, theta: float = 10000.0, device=None):
     return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,

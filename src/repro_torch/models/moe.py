@@ -18,8 +18,13 @@ Where torch and JAX differ, the port follows JAX:
     then sliced away (``.at[slot].set(..., mode="drop")``): no index is
     ever out of range, and no boolean mask makes the host wait.
 
-The scatter back is ``index_add_``; on CUDA it adds in a nondeterministic
-order, so a card run matches the CPU at a tolerance, not bitwise.
+The reference scatters the weighted expert outputs back to their tokens
+(``.at[].add``); the port gathers them instead: each (token, k) route
+reads its slot's output (a dropped route a zero row), summed over k in
+order. The sum is the same; unlike an atomic ``index_add_`` on CUDA it is
+reproducible run to run, which a deep bf16 MoE stack needs (one flipped
+rounding changes later layers' routes). A card run still matches the CPU
+at a tolerance, not bitwise (other summation orders).
 """
 from __future__ import annotations
 
@@ -113,9 +118,12 @@ def moe_apply(p, x, n_experts: int, top_k: int, capacity_factor: float = 1.25,
     h = h * torch.einsum("ecd,edf->ecf", xe, p["w_up"])
     ye = torch.einsum("ecf,efd->ecd", h, p["w_down"]).reshape(spare, d)
 
-    # ---- weighted scatter back to tokens
-    y = torch.zeros((t, d), dtype=x.dtype, device=dev).index_add(
-        0, src, ye * slot_gate[:, None]).reshape(b, s, d)
+    # ---- weighted outputs back to tokens: each route, in (token, k)
+    # order, reads its slot (a dropped one the zero row past the grid)
+    route_slot = torch.empty_like(slot)
+    route_slot[order] = slot
+    ye = torch.cat([ye * slot_gate[:, None], ye.new_zeros((1, d))])
+    y = ye[route_slot].reshape(t, top_k, d).sum(dim=1).reshape(b, s, d)
     if "shared" in p:
         y = y + swiglu(p["shared"], x)
 

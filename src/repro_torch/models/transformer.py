@@ -1,13 +1,15 @@
-"""Decoder LM assembly: the dense and MoE GQA decoders and the GLASU
-vertical split.
+"""Architecture zoo assembly: decoder LMs (dense, MoE, MLA with a dense
+head stack, the Mamba2 hybrid, RWKV6), the encoder-decoder, prefix
+embeddings (the vision / audio stubs), and the GLASU vertical split.
 
 Counterpart of ``repro.models.transformer``: parameter trees are the
 reference's (dicts of leaves stacked over layers), the forward pass
 (training and prefill) is ``lm_forward`` and decode ``lm_decode_step``
-against stacked per-layer KV caches. The reference's ``lax.scan`` over a
-stack becomes a loop over the stacked layer axis. Under ``cfg.remat`` a
-recorded forward recomputes its blocks in the backward pass, grouped as
-the reference's nested ``jax.checkpoint`` groups them (``_scan_stack``).
+against stacked per-layer caches (KV, MLA latent, Mamba2 and RWKV6
+states). The reference's ``lax.scan`` over a stack becomes a loop over the
+stacked layer axis. Under ``cfg.remat`` a recorded forward recomputes its
+blocks in the backward pass, grouped as the reference's nested
+``jax.checkpoint`` groups them (``_scan_stack``).
 
 GLASU-split mode (cfg.glasu): the hidden dimension is vertically
 partitioned into M feature shards ("clients"). Every ``sync_every``-th
@@ -16,12 +18,10 @@ other layers are block-diagonal per client (the paper's lazy aggregation
 on a transformer: K = L / sync_every aggregation layers out of L). The
 training step's stale microsteps (``_glasu_trunk(collect_stale=, stale=)``)
 replace the gather by the cached activations.
-
-Not ported yet, and refused where a model is built or run: MLA, mamba2,
-rwkv6, encoder-decoder and dense-head configs, and the prefix embeddings
-of the VLM / audio stubs (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +31,7 @@ from ..device import resolve_device
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from . import attention as attn
 from . import moe as moe_lib
+from . import ssm as ssm_lib
 from .layers import (dense_init, embed_init, remat, rmsnorm, rmsnorm_init,
                      swiglu, swiglu_init, wcol)
 
@@ -39,29 +40,15 @@ def _dtype(cfg: ArchConfig):
     return getattr(torch, cfg.dtype)          # "bfloat16" -> torch.bfloat16
 
 
-def _check_ported(cfg: ArchConfig):
-    """Raise for every branch of the reference the port does not run."""
-    for unported, what in ((cfg.is_encdec, "encoder-decoder"),
-                           (cfg.block == "mamba2", "mamba2 / zamba2"),
-                           (cfg.block == "rwkv6", "rwkv6"),
-                           (cfg.attn == "mla", "MLA attention"),
-                           (cfg.n_dense_layers > 0, "a dense head stack")):
-        if unported:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} not ported yet (the port runs dense "
-                "and MoE GQA decoders and the GLASU split; ROADMAP Queue 1 "
-                "item 4)")
-
-
 def _stack_init(fn, gen, n):
     """``fn(gen)`` n times, leaves stacked on a new leading axis."""
-    trees = [fn(gen) for _ in range(n)]
+    return _stack([fn(gen) for _ in range(n)])
 
-    def stack(items):
-        if isinstance(items[0], dict):
-            return {k: stack([t[k] for t in items]) for k in items[0]}
-        return torch.stack(items)
-    return stack(trees)
+
+def _stack(items):
+    if isinstance(items[0], dict):
+        return {k: _stack([t[k] for t in items]) for k in items[0]}
+    return torch.stack(items)
 
 
 def _unstack(stacked):
@@ -72,10 +59,22 @@ def _unstack(stacked):
     return [tree_unflatten(stacked, list(layer)) for layer in zip(*cols)]
 
 
+def _layer(stacked, i: int):
+    """Layer ``i`` of a stacked tree (caches): views of its leaves."""
+    return tree_map(lambda t: t[i], stacked)
+
+
+def _zero_aux(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 # =====================================================================
 # Block initializers
 # =====================================================================
 def _init_attn(gen, cfg: ArchConfig):
+    if cfg.attn == "mla":
+        return attn.mla_init(gen, cfg.d_model, cfg.n_heads, cfg.kv_lora,
+                             cfg.d_nope, cfg.d_rope, cfg.d_head, _dtype(cfg))
     return attn.gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head,
                          _dtype(cfg))
 
@@ -99,13 +98,13 @@ def _init_dense_block(gen, cfg: ArchConfig, use_moe: bool):
 # Dense / MoE decoder block (prefill + decode)
 # =====================================================================
 def _attn_prefill(p, x, cfg: ArchConfig, causal=True, window=None):
+    if cfg.attn == "mla":
+        return attn.mla_prefill(p, x, cfg.n_heads, cfg.kv_lora, cfg.d_nope,
+                                cfg.d_rope, cfg.d_head, causal=causal,
+                                rope_theta=cfg.rope_theta)
     return attn.gqa_prefill(p, x, cfg.n_heads, cfg.n_kv, cfg.d_head,
                             causal=causal, window=window,
                             rope_theta=cfg.rope_theta, use_flash=cfg.use_flash)
-
-
-def _zero_aux(x):
-    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _mlp(p, h, cfg: ArchConfig, use_moe: bool):
@@ -127,15 +126,91 @@ def dense_block(p, x, cfg: ArchConfig, use_moe: bool, window=None):
     return x + y, aux
 
 
+def dense_block_bidir(p, x, cfg: ArchConfig):
+    """The encoder's block: bidirectional attention + SwiGLU."""
+    x = x + _attn_prefill(p["attn"], rmsnorm(p["attn_norm"], x), cfg,
+                          causal=False)
+    return x + swiglu(p["mlp"], rmsnorm(p["mlp_norm"], x))
+
+
 def dense_block_decode(p, x, cache, cfg: ArchConfig, use_moe: bool,
                        ring: bool):
     h = rmsnorm(p["attn_norm"], x)
-    attn_out, cache = attn.gqa_decode(p["attn"], h, cache, cfg.n_heads,
-                                      cfg.n_kv, cfg.d_head, ring=ring,
-                                      rope_theta=cfg.rope_theta)
+    if cfg.attn == "mla":
+        attn_out, cache = attn.mla_decode(p["attn"], h, cache, cfg.n_heads,
+                                          cfg.kv_lora, cfg.d_nope, cfg.d_rope,
+                                          cfg.d_head,
+                                          rope_theta=cfg.rope_theta)
+    else:
+        attn_out, cache = attn.gqa_decode(p["attn"], h, cache, cfg.n_heads,
+                                          cfg.n_kv, cfg.d_head, ring=ring,
+                                          rope_theta=cfg.rope_theta)
     x = x + attn_out
     y, _ = _mlp(p, rmsnorm(p["mlp_norm"], x), cfg, use_moe)
     return x + y, cache
+
+
+def _cross(p, x, enc_out, cfg: ArchConfig):
+    """The decoder block's cross attention over the encoder output, its
+    k and v projected anew (in every decode step too, as the reference)."""
+    kv = attn.cross_kv(p["xattn"], enc_out, cfg.n_kv, cfg.d_head)
+    return x + attn.cross_attn(p["xattn"], rmsnorm(p["xattn_norm"], x), kv,
+                               cfg.n_heads, cfg.n_kv, cfg.d_head)
+
+
+# =====================================================================
+# SSM blocks
+# =====================================================================
+def _init_mamba_block(gen, cfg: ArchConfig):
+    return {"norm": rmsnorm_init(cfg.d_model, _dtype(cfg), gen.device),
+            "mamba": ssm_lib.mamba2_init(gen, cfg.d_model, cfg.d_state,
+                                         cfg.ssm_heads, cfg.ssm_head_dim,
+                                         dtype=_dtype(cfg))}
+
+
+def mamba_block(p, x, cfg: ArchConfig):
+    return x + ssm_lib.mamba2_forward(p["mamba"], rmsnorm(p["norm"], x),
+                                      cfg.d_state, cfg.ssm_heads,
+                                      cfg.ssm_head_dim, cfg.ssm_chunk)
+
+
+def mamba_block_decode(p, x, cache, cfg: ArchConfig):
+    y, cache = ssm_lib.mamba2_decode(p["mamba"], rmsnorm(p["norm"], x), cache,
+                                     cfg.d_state, cfg.ssm_heads,
+                                     cfg.ssm_head_dim)
+    return x + y, cache
+
+
+def _init_rwkv_block(gen, cfg: ArchConfig):
+    dt = _dtype(cfg)
+    return {"tm_norm": rmsnorm_init(cfg.d_model, dt, gen.device),
+            "time_mix": ssm_lib.rwkv6_init(gen, cfg.d_model, cfg.ssm_heads,
+                                           cfg.ssm_head_dim, dtype=dt),
+            "cm_norm": rmsnorm_init(cfg.d_model, dt, gen.device),
+            "chan_mix": ssm_lib.rwkv6_channel_mix_init(gen, cfg.d_model,
+                                                       cfg.d_ff, dt)}
+
+
+def rwkv_block(p, x, cfg: ArchConfig):
+    x = x + ssm_lib.rwkv6_forward(p["time_mix"], rmsnorm(p["tm_norm"], x),
+                                  cfg.ssm_heads, cfg.ssm_head_dim)
+    return x + ssm_lib.rwkv6_channel_mix(p["chan_mix"],
+                                         rmsnorm(p["cm_norm"], x))
+
+
+class RWKVBlockCache(NamedTuple):
+    time_mix: ssm_lib.RWKV6Cache
+    cm_x_prev: torch.Tensor      # (B, D) the last normed channel-mix input
+
+
+def rwkv_block_decode(p, x, cache: RWKVBlockCache, cfg: ArchConfig):
+    y, tm = ssm_lib.rwkv6_decode(p["time_mix"], rmsnorm(p["tm_norm"], x),
+                                 cache.time_mix, cfg.ssm_heads,
+                                 cfg.ssm_head_dim)
+    x = x + y
+    h = rmsnorm(p["cm_norm"], x)
+    y = ssm_lib.rwkv6_channel_mix(p["chan_mix"], h, cache.cm_x_prev)
+    return x + y, RWKVBlockCache(tm, h[:, 0])
 
 
 # =====================================================================
@@ -144,7 +219,7 @@ def dense_block_decode(p, x, cache, cfg: ArchConfig, use_moe: bool,
 def init_lm(gen: torch.Generator, cfg: ArchConfig, device=None):
     """The reference's parameter tree, drawn from ``gen`` on its device and
     placed on ``device`` (default: CUDA)."""
-    _check_ported(cfg)
+    dev = resolve_device(device)
     dt = _dtype(cfg)
     params = {
         "emb": embed_init(gen, cfg.vocab, cfg.d_model, dt),
@@ -153,10 +228,40 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig, device=None):
     }
     if cfg.glasu is not None:
         params = _init_glasu_lm(params, gen, cfg)
+    elif cfg.is_encdec:
+        params["enc"] = _stack_init(
+            lambda g: _init_dense_block(g, cfg, False), gen, cfg.enc_layers)
+        params["dec"] = _stack_init(
+            lambda g: {**_init_dense_block(g, cfg, False),
+                       "xattn_norm": rmsnorm_init(cfg.d_model, dt, g.device),
+                       "xattn": attn.cross_attn_init(
+                           g, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head,
+                           dt)},
+            gen, cfg.dec_layers)
+    elif cfg.block == "mamba2":
+        n_groups = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+        leftover = cfg.n_layers - n_groups * cfg.attn_every
+        if cfg.attn_every:
+            params["ssm_groups"] = _stack_init(
+                lambda g: _stack_init(lambda gg: _init_mamba_block(gg, cfg),
+                                      g, cfg.attn_every), gen, n_groups)
+            # one block whose weights every group applies
+            params["shared_attn"] = _init_dense_block(gen, cfg, False)
+        if leftover or not cfg.attn_every:
+            params["ssm_tail"] = _stack_init(
+                lambda g: _init_mamba_block(g, cfg), gen,
+                leftover if cfg.attn_every else cfg.n_layers)
+    elif cfg.block == "rwkv6":
+        params["blocks"] = _stack_init(lambda g: _init_rwkv_block(g, cfg),
+                                       gen, cfg.n_layers)
     else:
+        if cfg.n_dense_layers:
+            params["dense_head"] = _stack_init(
+                lambda g: _init_dense_block(g, cfg, False), gen,
+                cfg.n_dense_layers)
         params["blocks"] = _stack_init(
-            lambda g: _init_dense_block(g, cfg, cfg.moe), gen, cfg.n_layers)
-    dev = resolve_device(device)
+            lambda g: _init_dense_block(g, cfg, cfg.moe), gen,
+            cfg.n_layers - cfg.n_dense_layers)
     return tree_map(lambda t: t.to(dev), params)
 
 
@@ -205,18 +310,52 @@ def _scan_stack(block_fn, stacked_params, x, do_remat: bool = False):
     return x, torch.sum(torch.stack(auxes))
 
 
-def lm_forward(params, cfg: ArchConfig, tokens, window=None,
-               return_hidden=False):
-    """tokens (B, S) -> (logits (B, S, vocab), aux_loss), or (hidden
-    (B, S, D), aux_loss) with ``return_hidden``. The reference's prefix
-    ``embeds`` (VLM / audio stubs) and ``src_embeds`` (encoder-decoder)
-    are not ported."""
-    _check_ported(cfg)
+def _no_aux(block_fn):
+    """A block without an aux loss as ``_scan_stack`` takes it."""
+    def fn(p, x):
+        x = block_fn(p, x)
+        return x, _zero_aux(x)
+    return fn
+
+
+def lm_forward(params, cfg: ArchConfig, tokens=None, embeds=None,
+               src_embeds=None, window=None, return_hidden=False):
+    """Returns (logits (B, S, vocab), aux_loss), or (hidden (B, S, D),
+    aux_loss) with ``return_hidden`` so the caller can run a chunked loss
+    head. Inputs: ``tokens`` (B, T) and/or prefix ``embeds`` (B, P, D),
+    which come first (the VLM / audio stubs; S = P + T); ``src_embeds``
+    (B, S_src, D) the encoder-decoder's source side."""
     window = window if window is not None else cfg.sliding_window
-    x = params["emb"][tokens.long()]
+    pieces = []
+    if embeds is not None:
+        pieces.append(embeds.to(_dtype(cfg)))
+    if tokens is not None:
+        pieces.append(params["emb"][tokens.long()])
+    x = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1)
+
     if cfg.glasu is not None:
         x, aux_total, _ = _glasu_trunk(params, x, cfg, window)
+    elif cfg.is_encdec:
+        enc = encode(params, cfg, src_embeds)
+
+        def dec_block(p, h):
+            out, aux = dense_block(p, h, cfg, False, window)
+            return _cross(p, out, enc, cfg), aux
+
+        x, aux_total = _scan_stack(dec_block, params["dec"], x, cfg.remat)
+    elif cfg.block == "mamba2":
+        x, aux_total = _zamba_trunk_prefill(params, x, cfg, window), \
+            _zero_aux(x)
+    elif cfg.block == "rwkv6":
+        x, aux_total = _scan_stack(_no_aux(lambda p, h: rwkv_block(p, h,
+                                                                   cfg)),
+                                   params["blocks"], x, cfg.remat)
     else:
+        if cfg.n_dense_layers:
+            # the dense head's aux (zero) is dropped, as in the reference
+            x, _ = _scan_stack(
+                lambda p, h: dense_block(p, h, cfg, False, window),
+                params["dense_head"], x, cfg.remat)
         x, aux_total = _scan_stack(
             lambda p, h: dense_block(p, h, cfg, cfg.moe, window),
             params["blocks"], x, cfg.remat)
@@ -227,6 +366,31 @@ def lm_forward(params, cfg: ArchConfig, tokens, window=None,
     return x @ wcol(params["unemb"]), aux_total
 
 
+def encode(params, cfg: ArchConfig, src_embeds):
+    """The encoder-decoder's encoder: (B, S_src, D) source embeddings ->
+    the output every decoder layer attends to (``lm_forward``'s, and
+    ``lm_decode_step``'s ``enc_out``). It goes through the decoder's own
+    ``final_norm``, as in the reference."""
+    enc, _ = _scan_stack(_no_aux(lambda p, h: dense_block_bidir(p, h, cfg)),
+                         params["enc"], src_embeds.to(_dtype(cfg)),
+                         cfg.remat)
+    return rmsnorm(params["final_norm"], enc)
+
+
+def _zamba_trunk_prefill(params, x, cfg: ArchConfig, window):
+    """Zamba2: each group of ``attn_every`` Mamba2 blocks is followed by
+    the one ``shared_attn`` block (its gradient sums over the groups),
+    then the tail."""
+    mamba = _no_aux(lambda p, h: mamba_block(p, h, cfg))
+    if "ssm_groups" in params:
+        for gp in _unstack(params["ssm_groups"]):
+            x, _ = _scan_stack(mamba, gp, x, cfg.remat)
+            x, _ = dense_block(params["shared_attn"], x, cfg, False, window)
+    if "ssm_tail" in params:
+        x, _ = _scan_stack(mamba, params["ssm_tail"], x, cfg.remat)
+    return x
+
+
 # =====================================================================
 # Decode: one token through stacked caches
 # =====================================================================
@@ -235,61 +399,141 @@ def init_caches(cfg: ArchConfig, batch: int, seq_len: int,
     """Stacked per-layer decode caches sized for ``seq_len`` context, on
     ``device`` (default: CUDA). Sliding-window configs get a ring buffer of
     size ``window`` instead of the full context."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg)
     cap = seq_len
     if cfg.sliding_window and seq_len > cfg.sliding_window:
         cap = cfg.sliding_window
 
-    def kv(n):
-        shape = (n, batch, cap, cfg.n_kv, cfg.d_head)
-        return attn.KVCache(
-            torch.zeros(shape, dtype=dt, device=dev),
-            torch.zeros(shape, dtype=dt, device=dev),
-            torch.full((n,), prefill_len, dtype=torch.int32, device=dev))
+    def stacked(make, *ns):
+        """``make()`` with every leaf stacked to a leading ``ns`` shape."""
+        return tree_map(lambda t: t.expand(*ns, *t.shape).contiguous(),
+                        make())
 
-    return {"kv" if cfg.glasu is not None else "blocks": kv(cfg.n_layers)}
+    def kv(n):
+        return stacked(lambda: attn.kv_cache_init(
+            batch, cap, cfg.n_kv, cfg.d_head, dt, prefill_len, dev), n)
+
+    if cfg.glasu is not None:
+        return {"kv": kv(cfg.n_layers)}
+    if cfg.is_encdec:
+        return {"self": kv(cfg.dec_layers)}
+    if cfg.block == "mamba2":
+        def mamba(*ns):
+            return stacked(lambda: ssm_lib.mamba2_cache_init(
+                batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.d_state,
+                cfg.ssm_heads * cfg.ssm_head_dim + 2 * cfg.d_state,
+                dtype=dt, device=dev), *ns)
+
+        caches = {}
+        leftover = cfg.n_layers
+        if cfg.attn_every:
+            n_groups = cfg.n_layers // cfg.attn_every
+            caches["ssm_groups"] = mamba(n_groups, cfg.attn_every)
+            # one KV cache for each application of the shared block
+            caches["shared_attn"] = kv(n_groups)
+            leftover -= n_groups * cfg.attn_every
+        if leftover:
+            caches["ssm_tail"] = mamba(leftover)
+        return caches
+    if cfg.block == "rwkv6":
+        return {"blocks": stacked(lambda: RWKVBlockCache(
+            ssm_lib.rwkv6_cache_init(batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                     cfg.d_model, dt, dev),
+            torch.zeros((batch, cfg.d_model), dtype=dt, device=dev)),
+            cfg.n_layers)}
+    if cfg.attn == "mla":
+        def layers(n):
+            return stacked(lambda: attn.mla_cache_init(
+                batch, cap, cfg.kv_lora, cfg.d_rope, dt, prefill_len, dev), n)
+    else:
+        layers = kv
+    caches = {"blocks": layers(cfg.n_layers - cfg.n_dense_layers)}
+    if cfg.n_dense_layers:
+        caches["dense_head"] = layers(cfg.n_dense_layers)
+    return caches
 
 
 def _uses_ring(cfg: ArchConfig, caches) -> bool:
-    """Ring-buffer flag, derived from the cache capacity (a shape)."""
+    """Ring-buffer flag, derived from the cache capacity (a shape). Only
+    KV caches are read, as in the reference."""
     if cfg.sliding_window is None:
         return False
-    for key in ("kv", "blocks"):
+    for key in ("kv", "self", "blocks", "shared_attn"):
         c = caches.get(key)
         if isinstance(c, attn.KVCache):
             return c.k.shape[2] == cfg.sliding_window
     return False
 
 
-def _cache_layer(caches: attn.KVCache, i: int) -> attn.KVCache:
-    return attn.KVCache(caches.k[i], caches.v[i], caches.pos[i])
-
-
-def _decode_stack(stacked, caches, x, cfg: ArchConfig, ring):
-    """One token through a layer stack; the caches' k and v are updated in
-    place (views of the stacked tensors), the positions returned anew."""
-    new_pos = []
+def _decode_stack(stacked, caches, x, layer_fn):
+    """One token through a layer stack: ``x, cache_i = layer_fn(p_i, x,
+    cache_i)`` for each layer, ``cache_i`` views of the stacked caches.
+    A cache leaf every layer wrote in place (the KV and MLA caches) stays
+    the stacked tensor; the others (positions, recurrent states) are
+    stacked anew."""
+    old = tree_leaves(caches)
+    new = []
     for i, p in enumerate(_unstack(stacked)):
-        x, nc = dense_block_decode(p, x, _cache_layer(caches, i), cfg,
-                                   cfg.moe, ring)
-        new_pos.append(nc.pos)
-    return x, attn.KVCache(caches.k, caches.v, torch.stack(new_pos))
+        x, nc = layer_fn(p, x, _layer(caches, i))
+        new.append(tree_leaves(nc))
+    leaves = [o if all(n[j].data_ptr() == o[i].data_ptr()
+                       for i, n in enumerate(new))
+              else torch.stack([n[j] for n in new])
+              for j, o in enumerate(old)]
+    return x, tree_unflatten(caches, leaves)
 
 
-def lm_decode_step(params, caches, cfg: ArchConfig, token):
+def lm_decode_step(params, caches, cfg: ArchConfig, token, enc_out=None):
     """One greedy decode step. token: (B, 1) int -> (next_token (B, 1)
-    int32, caches). The caches' k and v are written in place."""
-    _check_ported(cfg)
+    int32, caches); the encoder-decoder also takes the encoder output
+    ``enc_out`` (B, S_src, D). KV and MLA caches are written in place."""
     x = params["emb"][token.long()]
     ring = _uses_ring(cfg, caches)
     caches = dict(caches)
+
+    def dense(use_moe):
+        return lambda p, h, c: dense_block_decode(p, h, c, cfg, use_moe, ring)
+
     if cfg.glasu is not None:
         x, caches["kv"] = _glasu_decode(params, x, caches["kv"], cfg, ring)
+    elif cfg.is_encdec:
+        def dec(p, h, c):
+            out, c = dense_block_decode(p, h, c, cfg, False, ring)
+            return _cross(p, out, enc_out, cfg), c
+
+        x, caches["self"] = _decode_stack(params["dec"], caches["self"], x,
+                                          dec)
+    elif cfg.block == "mamba2":
+        def mamba(p, h, c):
+            return mamba_block_decode(p, h, c, cfg)
+
+        if "ssm_groups" in caches:
+            def group(gp, h, gc):
+                h, ssm_c = _decode_stack(gp, gc[0], h, mamba)
+                h, attn_c = dense_block_decode(params["shared_attn"], h,
+                                               gc[1], cfg, False, ring)
+                return h, (ssm_c, attn_c)
+
+            x, (caches["ssm_groups"], caches["shared_attn"]) = \
+                _decode_stack(params["ssm_groups"], (caches["ssm_groups"],
+                                                     caches["shared_attn"]),
+                              x, group)
+        if "ssm_tail" in caches:
+            x, caches["ssm_tail"] = _decode_stack(params["ssm_tail"],
+                                                  caches["ssm_tail"], x,
+                                                  mamba)
+    elif cfg.block == "rwkv6":
+        x, caches["blocks"] = _decode_stack(
+            params["blocks"], caches["blocks"], x,
+            lambda p, h, c: rwkv_block_decode(p, h, c, cfg))
     else:
+        if cfg.n_dense_layers:
+            x, caches["dense_head"] = _decode_stack(
+                params["dense_head"], caches["dense_head"], x, dense(False))
         x, caches["blocks"] = _decode_stack(params["blocks"],
-                                            caches["blocks"], x, cfg, ring)
+                                            caches["blocks"], x,
+                                            dense(cfg.moe))
     x = rmsnorm(params["final_norm"], x)
     logits = x @ wcol(params["unemb"])
     return torch.argmax(logits, dim=-1).to(torch.int32), caches
@@ -463,13 +707,13 @@ def _glasu_decode(params, x, kv_caches, cfg: ArchConfig, ring):
     li = 0
     for gp in _unstack(params["groups"]):
         full, nc = dense_block_decode(gp["sync"], x_loc.reshape(b, 1, -1),
-                                      _cache_layer(kv_caches, li), cfg,
+                                      _layer(kv_caches, li), cfg,
                                       False, ring)
         new_pos.append(nc.pos)
         li += 1
         x_loc = full.reshape(b, 1, m, dm)
         for lp in _unstack(gp["locals"]) if g.sync_every > 1 else []:
-            c = _cache_layer(kv_caches, li)
+            c = _layer(kv_caches, li)
             shape = (b, cap, m, kvm, cfg.d_head)
             pos = (torch.zeros((1, 1), device=x.device) + c.pos).float()
             x_loc, (_, _, npos) = _glasu_local_block(

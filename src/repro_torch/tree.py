@@ -40,14 +40,18 @@ def tree_map(fn, tree):
 def tree_unflatten(like, leaves):
     """The tree of ``like``'s structure holding ``leaves`` (in
     ``tree_leaves`` order)."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(t):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return _rebuild(t, [build(x) for x in t])
-        return next(it)
-    return build(like)
+
+def _build(t, it):
+    """``t``'s structure filled from ``it``. A module-level function: a
+    nested one calling itself is a reference cycle, and its cell for ``it``
+    would hold the leaves (parameters, gradients) until the garbage
+    collector ran."""
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return _rebuild(t, [_build(x, it) for x in t])
+    return next(it)

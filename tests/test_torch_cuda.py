@@ -674,3 +674,91 @@ def test_lm_train_step_on_card_matches_cpu(cuda_device, arch, over, split):
         _, step = steps.make_train_step(cfg.with_(use_flash=True), "cuda")
         step(steps.TrainState(gs.params, gs.opt_state, 0),
              {k: v.to(cuda_device) for k, v in batch.items()})
+
+
+# ------------------------------------------------- the transformer families
+# reduced family -> (config overrides, flash launches of one prefill):
+# zamba2 at 5 layers runs the shared block after each of its 2 groups;
+# seamless launches 2 bidirectional encoder and 2 causal decoder layers
+FAMILY_FLASH = {"deepseek_v2_lite_16b": ({}, 0),
+                "zamba2_1p2b": (dict(n_layers=5), 2), "rwkv6_7b": ({}, 0),
+                "seamless_m4t_large_v2": ({}, 4), "pixtral_12b": ({}, 2)}
+
+
+def _family_inputs(cfg, seed):
+    """Tokens (2, 64) and the source frames (2, 8, D) or patch embeddings
+    the family takes, on the CPU."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(2, 64)).astype(np.int32))}
+    if cfg.is_encdec:
+        out["src_embeds"] = torch.from_numpy(rng.normal(
+            size=(2, 8, cfg.d_model)).astype(np.float32))
+    elif cfg.frontend == "vision":
+        out["embeds"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.frontend_tokens, cfg.d_model)).astype(np.float32))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(FAMILY_FLASH))
+def test_family_prefill_on_card_matches_cpu(cuda_device, arch, monkeypatch):
+    """Each reduced family's fp32 prefill on the card against the CPU at
+    CARD_TOL, plain attention; then with ``use_flash`` the exact number of
+    flash launches (0 for MLA and RWKV6, which never take it), each launch
+    held against the plain version on its card inputs at FLASH_TOL, and the
+    logits against the CPU's plain version at CARD_TOL."""
+    over, want_launches = FAMILY_FLASH[arch]
+    cfg = get_reduced(arch).with_(**over)
+    params = tfm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+    inp = _family_inputs(cfg, 23)
+    card = tree_map(lambda t: t.to(cuda_device), params)
+    card_inp = {k: v.to(cuda_device) for k, v in inp.items()}
+    kernel, errs = ops.flash_attention_cuda, []
+
+    def checked(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        errs.append(float((out - flash.flash_attention_plain(q, k, v, **kw))
+                          .abs().max()))
+        return out
+
+    monkeypatch.setattr(ops, "flash_attention_cuda", checked)
+    with torch.inference_mode():
+        want, _ = tfm.lm_forward(params, cfg, **inp)
+        got, _ = tfm.lm_forward(card, cfg, **card_inp)
+        torch.testing.assert_close(got.cpu(), want, **CARD_TOL)
+        fcfg = cfg.with_(use_flash=True)
+        before = flash.flash_attention_cuda.launches
+        got, _ = tfm.lm_forward(card, fcfg, **card_inp)
+        assert flash.flash_attention_cuda.launches - before == want_launches
+        want, _ = tfm.lm_forward(params, fcfg, **inp)
+    assert len(errs) == want_launches
+    assert max(errs, default=0.0) <= FLASH_TOL["float32"]["atol"], errs
+    torch.testing.assert_close(got.cpu(), want, **CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(FAMILY_FLASH))
+def test_family_train_step_on_card_matches_cpu(cuda_device, arch):
+    """One fp32 momentum-SGD step of each reduced family (MLA + MoE, the
+    Mamba2 SSD and the shared block, the chunked WKV, the encoder-decoder,
+    the patch prefix) on the card and on the CPU: loss and every gradient
+    (the momentum buffer) at CARD_TOL."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import steps
+    from repro_torch.data.pipeline import synth_train_batch
+    cfg = get_reduced(arch).with_(optimizer="sgd", **FAMILY_FLASH[arch][0])
+    params = tfm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = synth_train_batch(cfg, InputShape("t", 64, 2, "train"), seed=1)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        _, step = steps.make_train_step(cfg, dev)
+        p = tree_map(lambda t: t.to(dev), params)
+        state = steps.TrainState(p, steps.make_optimizer(cfg).init(p), 0)
+        out[str(dev)] = step(state, {k: v.to(dev) for k, v in batch.items()})
+    (cs, cm), (gs, gm) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(float(gm["loss"]), float(cm["loss"]),
+                               **CARD_TOL)
+    for a, b in zip(tree_leaves(cs.opt_state.momentum),
+                    tree_leaves(gs.opt_state.momentum)):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), **CARD_TOL)

@@ -72,8 +72,8 @@ def test_every_module_imports_without_triton_or_jax():
         "m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
-    assert {"repro_torch.models.moe", "repro_torch.launch.train",
-            "repro_torch.core.steps"} <= set(mods)
+    assert {"repro_torch.models.moe", "repro_torch.models.ssm",
+            "repro_torch.launch.train", "repro_torch.core.steps"} <= set(mods)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"},
@@ -114,11 +114,10 @@ def test_default_device_is_cuda_and_raises_without_it():
 
 def test_unported_training_options_raise(monkeypatch):
     """What the port still refuses: the flash kernel's backward on the card
-    (the reference cannot differentiate its Pallas kernel either), and
-    training the transformer families it does not build: MLA, mamba2,
-    rwkv6 and encoder-decoder. Every backend and serve engine of the
-    reference is ported and runs on the CPU, and so do the dense and MoE
-    transformer training steps."""
+    (the reference cannot differentiate its Pallas kernel either). Every
+    backend and serve engine of the reference is ported and runs on the
+    CPU, and so does every transformer family's training step
+    (tests/test_torch_families.py holds them to the reference)."""
     from repro_torch.configs.base import get_reduced
     from repro_torch.core import steps
     from repro_torch.kernels import ops
@@ -129,11 +128,6 @@ def test_unported_training_options_raise(monkeypatch):
                        match="pallas_call has no reverse-mode rule"):
         ops.flash_attention(q, kv, kv)
     monkeypatch.undo()
-    for arch in ("deepseek_v2_lite_16b", "zamba2_1p2b", "rwkv6_7b",
-                 "seamless_m4t_large_v2"):
-        init, _ = steps.make_train_step(get_reduced(arch), "cpu")
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            init(torch.Generator().manual_seed(0))
     init, step = steps.make_train_step(get_reduced("phi35_moe_42b"), "cpu")
     assert init(torch.Generator().manual_seed(0)).step == 0
     tiny = dict(dataset="tiny", hidden=8, batch_size=8, size_cap=96)

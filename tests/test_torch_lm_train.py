@@ -339,6 +339,26 @@ def test_train_launcher_checkpoints_and_resumes(tmp_path, capsys):
         tlaunch.main(["--full", "--device", "cpu"])
 
 
+@pytest.mark.parametrize("arch", ["seamless_m4t_large_v2", "pixtral_12b"])
+def test_train_launcher_feeds_prefix_batches(arch, capsys, monkeypatch):
+    """The encoder-decoder and vision configs train on synth_train_batch
+    batches, as the reference's launcher: their source frames or patch
+    embeddings reach the loss, and the loss stays finite."""
+    seen, loss_fn = [], tsteps._loss_fn
+    monkeypatch.setattr(tsteps, "_loss_fn", lambda p, b, c: seen.append(
+        sorted(b)) or loss_fn(p, b, c))
+    state = tlaunch.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                          "--seq", "32", "--steps", "2"])
+    assert state.step == 2
+    embeds = "src_embeds" if arch.startswith("seamless") else "patch_embeds"
+    assert len(seen) == 2 and all(keys == sorted([embeds, "labels",
+                                                  "tokens"]) for keys in seen)
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in capsys.readouterr().out.splitlines()
+              if "loss=" in line]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+
+
 def test_reference_train_state_resumes_in_port(tmp_path, capsys):
     """A TrainState the reference saved restores into the port's (same
     leaves, same order), and the launcher resumes from it."""

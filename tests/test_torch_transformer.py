@@ -50,12 +50,6 @@ LONG_TOL = dict(rtol=1.5e-4, atol=1.5e-4)
 LAYER_TOL = dict(rtol=2e-6, atol=2e-6)
 BF16_TOL = dict(rtol=2 ** -8, atol=2 ** -8)
 DENSE_IDS = ["smollm_360m", "llama3_405b", "yi_34b", "granite_20b"]
-# still refused: MLA, mamba2, rwkv6, encoder-decoder, and a dense head
-# stack (phi3.5-moe is ported; with one leading dense layer, deepseek's
-# layout without its MLA, it is refused for the stack alone)
-UNPORTED = {"deepseek_v2_lite_16b": {},
-            "phi35_moe_42b": dict(n_dense_layers=1), "zamba2_1p2b": {},
-            "rwkv6_7b": {}, "seamless_m4t_large_v2": {}}
 # tests/test_decode_consistency.py::test_glasu_split_decode_matches_prefill
 GLASU_KW = dict(name="t", kind="dense", n_layers=4, d_model=64, n_heads=4,
                 n_kv=2, d_head=16, d_ff=128, vocab=128, dtype="float32",
@@ -449,20 +443,6 @@ def test_glasu_helpers_match_reference():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LAYER_TOL)
     with pytest.raises(ValueError, match="evenly"):
         ttfm._glasu_dims(tcfg.with_(glasu=tbase.GlasuSplit(3, 2, 1)))
-
-
-@pytest.mark.parametrize("arch_id", list(UNPORTED))
-def test_unported_branches_raise(arch_id):
-    cfg = tbase.get_reduced(arch_id).with_(**UNPORTED[arch_id])
-    gen = torch.Generator().manual_seed(0)
-    match = "a dense head stack not ported yet" if UNPORTED[arch_id] \
-        else "not ported yet"
-    with pytest.raises(NotImplementedError, match=match):
-        ttfm.init_lm(gen, cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ttfm.init_caches(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ttfm.lm_forward({}, cfg, tokens=torch.zeros((1, 4), dtype=torch.long))
 
 
 def test_entry_points_default_to_cuda():
