@@ -154,6 +154,15 @@ Phases, each printing its own lines:
             (finite losses, step ms, tokens/s, peak memory); then each
             reduced config in fp32 on the card against the CPU (prefill
             logits, one SGD step's loss and gradients, 1e-4);
+   dryrun   the multi-pod dry-run (``repro_torch.launch.dryrun``) at
+            published widths on placeholder groups of 256 / 512 ranks:
+            SmolLM-360M train_4k, prefill_32k and decode_32k on 16x16,
+            train_4k on 2x16x16, llama3-405b (8 of 126 layers) train_4k on
+            16x16, one line each (per-device TFLOP, hbm_bytes, collectives
+            by kind, argument and temp GiB, trace seconds); then the 1x1
+            record of the train_lm step against the real step on the card:
+            flops and argument bytes exactly, arguments + temp within
+            10 % of its peak; no process group left;
 8. flash32k one flash launch at the 32k serving shape (B 1, S 32768, H 15,
             Kv 5, dh 64, bf16) against the plain version (one bf16
             rounding, as on the main path), its bound and one
@@ -3361,6 +3370,121 @@ def phase_families(torch, mods):
     return out
 
 
+# ------------------------------------------------------------ dry-run
+def llama3_405b_config(**kw):
+    """Llama-3.1-405B at its published widths (``git show
+    45395fd:src/repro/configs/llama3_405b.py``): 126 layers, d_model
+    16384, 128 heads over 8 kv heads of 128, d_ff 53248, vocab 128256,
+    grad_accum 4, Adafactor, bf16. Its weights cross ``_add_fsdp``'s
+    16 MiB, so they also shard over 'data'."""
+    from repro_torch.configs.base import ArchConfig
+    return ArchConfig(**{**dict(
+        name="llama3-405b", kind="dense", n_layers=126, d_model=16384,
+        n_heads=128, n_kv=8, d_head=128, d_ff=53248, vocab=128256,
+        grad_accum=4, rope_theta=500000.0, dtype="bfloat16",
+        optimizer="adafactor", lr=8e-5), **kw})
+
+
+# (arch, shape, multi_pod): the records traced on the placeholder meshes
+DRYRUN_RECORDS = (("smollm_360m", "train_4k", False),
+                  ("smollm_360m", "prefill_32k", False),
+                  ("smollm_360m", "decode_32k", False),
+                  ("smollm_360m", "train_4k", True),
+                  ("llama3_405b", "train_4k", False))
+# llama3-405b's depth for the trace (of 126): each layer adds seconds of
+# host time (DTensor places every op in Python); the widths are published
+LLAMA_DRYRUN_LAYERS = 8
+DRYRUN_PEAK_TOL = 0.10
+
+
+def _dryrun_line(card, rec, cfg):
+    mem = rec["memory"]
+    coll = ", ".join(f"{k} {v['count']} x / {v['bytes'] / 2 ** 30:.3f} GiB"
+                     for k, v in sorted(rec["collectives"].items()))
+    print(f"dryrun: {rec['arch']} {rec['shape']} on {rec['mesh']} "
+          f"({rec['n_devices']} placeholder ranks, {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}), per device: "
+          f"{rec['flops'] / 1e12:.3f} TFLOP, hbm_bytes "
+          f"{rec['hbm_bytes']:.4e}, collectives {{{coll or 'none'}}}, "
+          f"arguments {_gib(mem['argument_size_in_bytes'])}, temp "
+          f"{_gib(mem['temp_size_in_bytes'])}; traced in "
+          f"{rec['compile_s']:.1f} s (state built and placed in "
+          f"{rec['lower_s']:.1f} s, host clock) [{card}]")
+
+
+def phase_dryrun(torch, mods, card):
+    """The multi-pod dry-run (``repro_torch.launch.dryrun``): the records
+    of DRYRUN_RECORDS at published widths on placeholder 256 / 512-rank
+    groups, then the 1x1 record of the train_lm phase's step against the
+    real step on this card: flops and argument bytes exactly, arguments
+    plus temporaries within DRYRUN_PEAK_TOL of the step's peak."""
+    import gc
+
+    import torch.distributed as dist
+    dryrun, op_cost = mods["dryrun"], mods["op_cost"]
+    for arch, shape, multi_pod in DRYRUN_RECORDS:
+        cfg = smollm_config(use_flash=False) if arch == "smollm_360m" \
+            else llama3_405b_config(n_layers=LLAMA_DRYRUN_LAYERS)
+        rec = dryrun.run_combo(arch, shape, multi_pod, cfg_override=cfg,
+                               device="cuda")
+        if not rec["ok"]:
+            raise AssertionError(f"dryrun {arch} {shape}: {rec['error']}\n"
+                                 f"{rec['traceback']}")
+        _dryrun_line(card, rec, cfg)
+        if dist.is_initialized():
+            raise AssertionError("dryrun: a process group outlived the "
+                                 "trace")
+    # ---- the 1x1 record against the real step on this card
+    cfg = smollm_config(use_flash=False)
+    shape = mods["InputShape"]("train_lm", TRAIN_LM_S, TRAIN_LM_B, "train")
+    rec = dryrun.run_combo("smollm_360m", shape.name, False,
+                           cfg_override=cfg, device="cuda", shape=shape,
+                           debug_mesh=(1, 1))
+    if not rec["ok"]:
+        raise AssertionError(f"dryrun 1x1: {rec['error']}\n"
+                             f"{rec['traceback']}")
+    _dryrun_line(card, rec, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    init, step = mods["make_train_step"](cfg, "cuda")
+    state = init(torch.Generator(device="cuda").manual_seed(SEED))
+    batch = _lm_batch(torch, mods, cfg.vocab, TRAIN_LM_B, TRAIN_LM_S)
+    resident = sum(t.numel() * t.element_size() for t in
+                   mods["tree_leaves"]((state, batch))
+                   if isinstance(t, torch.Tensor))
+    other = torch.cuda.memory_allocated() - resident
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(mods["graph_agg"])
+    real = op_cost.measure(step, state, batch)
+    torch.cuda.synchronize()
+    _no_launches(mods["graph_agg"], "dryrun: the real step")
+    peak = torch.cuda.max_memory_allocated() - other
+    mem = rec["memory"]
+    traced = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    print(f"dryrun: 1x1 record against the real step on the card (B "
+          f"{TRAIN_LM_B} x S {TRAIN_LM_S}): flops {rec['flops']:.6e} traced, "
+          f"{real['flops']:.6e} measured; arguments "
+          f"{mem['argument_size_in_bytes']} B traced, {resident} B "
+          f"resident; arguments + temp {_gib(traced)} traced, step peak "
+          f"{_gib(peak)} (max_memory_allocated less {other} B of other "
+          f"tensors), {traced / peak - 1:+.2%} [{card}]")
+    if rec["flops"] != real["flops"]:
+        raise AssertionError(f"dryrun 1x1: flops {rec['flops']} traced, "
+                             f"{real['flops']} on the card")
+    if mem["argument_size_in_bytes"] != resident:
+        raise AssertionError(f"dryrun 1x1: arguments "
+                             f"{mem['argument_size_in_bytes']} B traced, "
+                             f"{resident} B resident")
+    if abs(traced / peak - 1) > DRYRUN_PEAK_TOL:
+        raise AssertionError(f"dryrun 1x1: arguments + temp {traced} B, "
+                             f"step peak {peak} B")
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(flops=rec["flops"], traced=traced, peak=peak)
+
+
 def _replay(torch, captured, cuda_fn, plain_fn, bound_fn):
     """Per-launch numbers of a kernel on exactly the inputs the main path
     gave it: max abs error, device ms, host-inclusive ms, plain ms, bound."""
@@ -3601,7 +3725,7 @@ def main() -> int:
     from repro_torch.serve import InferenceSession, ServeConfig
     from repro_torch.tree import tree_leaves, tree_map
 
-    _timed("device", phase_device, torch)
+    card = _timed("device", phase_device, torch)
     _timed("build", phase_build, build)
     _timed("kernels", phase_kernels, torch, graph_agg)
     _timed("kernels", phase_kernels_gcn, torch, graph_agg)
@@ -3654,6 +3778,9 @@ def main() -> int:
                           split, 16)}
     lm["train"] = _timed("train_lm", phase_train_lm, torch, mods)
     lm["families"] = _timed("families", phase_families, torch, mods)
+    from repro_torch.launch import dryrun, op_cost
+    mods.update(dryrun=dryrun, op_cost=op_cost)
+    lm["dryrun"] = _timed("dryrun", phase_dryrun, torch, mods, card)
     flash32k = _timed("flash32k", phase_flash_32k, torch, flash)
     _timed("result", phase_result, torch, graph_agg, trained, served,
            powerlaw, get_preset("cora-gcnii-glasu").n_layers, lm, flash32k,

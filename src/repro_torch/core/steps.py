@@ -21,7 +21,8 @@ import torch
 
 from ..configs.base import ArchConfig, InputShape
 from ..models import transformer as tfm
-from ..models.layers import remat, rmsnorm, wcol
+from ..device import is_dtensor
+from ..models.layers import BATCH, remat, reshape, rmsnorm, shard, wcol
 from ..optim import optimizers as opt_lib
 from ..tree import tree_leaves, tree_map, tree_unflatten
 
@@ -43,10 +44,19 @@ def make_optimizer(cfg: ArchConfig) -> opt_lib.Optimizer:
 def _ce_terms(logits, labels):
     """Per-position ``lse - gold`` in fp32 (labels < 0 pick column 0; the
     caller masks them). The gold logit is a gather: exact, as the
-    reference's iota comparison is."""
+    reference's iota comparison is. On a DTensor split over the vocab (the
+    dry-run, vocab over 'model') it is the reference's comparison itself, a
+    masked sum that reduces across the vocab shards instead of gathering
+    them."""
     logits = logits.float()
     m = torch.amax(logits, dim=-1, keepdim=True)
     lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
+    if is_dtensor(logits) and any(p.is_shard(logits.ndim - 1)
+                                  for p in logits.placements):
+        vid = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.sum(torch.where(vid == labels[..., None], logits, 0.0),
+                         dim=-1)
+        return lse - gold
     gold = torch.gather(logits, -1,
                         torch.clamp(labels.long(), min=0)[..., None])[..., 0]
     return lse - gold
@@ -71,7 +81,10 @@ def chunked_ce_head(unemb, hidden, labels, vocab: int, chunk: int = 512):
 
     def body(h, lab):
         valid = (lab >= 0).float()
-        return (torch.sum(_ce_terms(h @ unemb, lab) * valid),
+        # placed as lm_forward places its logits; on a mesh their
+        # gradient then reaches the matmul in that layout
+        logits = shard(h @ unemb, BATCH, None, "model")
+        return (torch.sum(_ce_terms(logits, lab) * valid),
                 torch.sum(valid))
 
     tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -151,7 +164,7 @@ def make_train_step(cfg: ArchConfig, device=None):
             loss = aux = torch.zeros((), dtype=torch.float32,
                                      device=batch["tokens"].device)
             for i in range(a):
-                mb = {k: v.reshape(a, v.shape[0] // a, *v.shape[1:])[i]
+                mb = {k: reshape(v, a, v.shape[0] // a, *v.shape[1:])[i]
                       for k, v in batch.items()}
                 g, l, x = grads_of(state.params, mb)
                 torch._foreach_add_(tree_leaves(grads), tree_leaves(g))

@@ -1,9 +1,11 @@
-"""Synthetic token batches for the transformer stack.
+"""Synthetic token batches for the transformer stack, and the dry-run's
+input stand-ins.
 
 Counterpart of ``repro.data.pipeline``: the same numpy streams, so a seed
 gives the reference's tokens bit for bit. The container has no network, so
-prompts and batches are generated, never downloaded. The dry-run
-``input_specs`` (shape stand-ins for a TPU mesh) is not ported.
+prompts and batches are generated, never downloaded. ``input_specs`` gives
+the multi-pod dry-run its inputs as storage-less tensors (the reference's
+``jax.ShapeDtypeStruct`` stand-ins).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig, InputShape
+
 
 def train_batch_shapes(cfg: ArchConfig, shape: InputShape) -> Dict[str, tuple]:
     b, s = shape.global_batch, shape.seq_len
@@ -32,6 +35,28 @@ def train_batch_shapes(cfg: ArchConfig, shape: InputShape) -> Dict[str, tuple]:
         out["tokens"] = (b, s)
         out["labels"] = (b, s)
     return out
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape, device="meta"):
+    """Stand-ins for every model input of ``shape``'s mode, with the
+    reference's shapes and dtypes, on ``device`` (default ``meta``: no
+    storage): a training batch, or a decode step's token (and the
+    encoder-decoder's encoder output)."""
+    def spec(shp, dt):
+        return torch.empty(shp, dtype=dt, device=device)
+
+    if shape.mode == "train":
+        return {name: spec(shp, torch.int32 if name in ("tokens", "labels")
+                           else getattr(torch, cfg.dtype))
+                for name, shp in train_batch_shapes(cfg, shape).items()}
+    # decode: one new token per sequence
+    b = shape.global_batch
+    specs = {"token": spec((b, 1), torch.int32)}
+    if cfg.is_encdec:
+        src = cfg.frontend_tokens or min(shape.seq_len, 4096)
+        specs["enc_out"] = spec((b, src, cfg.d_model),
+                                getattr(torch, cfg.dtype))
+    return specs
 
 
 def synth_train_batch(cfg: ArchConfig, shape: InputShape, seed: int = 0,

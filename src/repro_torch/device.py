@@ -1,4 +1,5 @@
-"""Which device an entry point runs on.
+"""Which device an entry point runs on, and whether a tensor is spread
+over a mesh.
 
 Entry points run on the GPU unless the caller asks for the CPU: ``None``
 means ``"cuda"``, and a CUDA request on a machine without CUDA raises
@@ -17,3 +18,13 @@ def resolve_device(device=None) -> torch.device:
             "points) but torch.cuda.is_available() is False; pass "
             "device='cpu' to run the plain PyTorch versions")
     return dev
+
+
+def is_dtensor(x) -> bool:
+    """True for a ``torch.distributed.tensor.DTensor`` (the multi-pod
+    dry-run's tensors); a plain tensor needs no import of the distributed
+    package to say no."""
+    if type(x) is torch.Tensor or not isinstance(x, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)

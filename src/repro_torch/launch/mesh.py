@@ -1,7 +1,19 @@
-"""The client mesh of the sharded GLASU backend, on ``torch.distributed``.
+"""Meshes on ``torch.distributed``: the production meshes of the multi-pod
+dry-run and the client mesh of the sharded GLASU backend.
 
-Counterpart of the client part of ``repro.launch.mesh``
-(``client_mesh_size``, ``make_client_mesh``). The reference's mesh is a
+Counterpart of ``repro.launch.mesh``.
+
+**Production meshes.** ``make_production_mesh`` is the ``(16, 16)``
+``("data", "model")`` mesh of 256 ranks, or ``(2, 16, 16)`` ``("pod",
+"data", "model")`` of 512, as a ``DeviceMesh``; ``make_debug_mesh`` a
+small ``("data", "model")`` one. Both need a default process group that
+large. ``placeholder_group(n)`` makes one in this process without any
+peer: torch's ``"fake"`` backend, whose collectives move nothing, with
+this process as rank 0 of ``n`` (the reference forces 512 host devices
+instead). It refuses to start while a default group exists and destroys
+its own on exit, a failure included.
+
+**The client mesh.** The reference's client mesh is a
 one-axis ``('clients',)`` device mesh; here it is a process group over
 ``d`` ranks, one device each, where ``d`` is the largest divisor of the
 client count that the world (capped at ``max_devices``) allows. Rank ``r``
@@ -22,6 +34,7 @@ and rank) before building the mesh; that group stays the caller's.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any
 
@@ -29,6 +42,60 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+
+
+@contextlib.contextmanager
+def placeholder_group(world_size: int):
+    """The default process group as ``world_size`` placeholder ranks, this
+    process rank 0, for as long as the context lasts: the ``"fake"``
+    backend (``torch.testing._internal.distributed.fake_pg``), whose
+    collectives complete at once and move nothing. Raises if a default
+    group already exists (one this module's ``make_client_mesh`` built, or
+    the caller's)."""
+    if dist.is_initialized():
+        raise RuntimeError(
+            "placeholder_group: a default process group already exists "
+            f"(backend {dist.get_backend()!r}, world size "
+            f"{dist.get_world_size()}); close the meshes, trainers and "
+            "sessions that hold it, or destroy it, first")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield dist.group.WORLD
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _device_mesh(shape, axes, device):
+    """A ``DeviceMesh`` of ranks ``0 .. prod(shape) - 1`` of the default
+    group, laid out row-major over ``axes``, for tensors on ``device``."""
+    from torch.distributed.device_mesh import DeviceMesh
+    n = 1
+    for d in shape:
+        n *= d
+    if not dist.is_initialized() or dist.get_world_size() < n:
+        raise RuntimeError(
+            f"a {'x'.join(map(str, shape))} mesh needs a default process "
+            f"group of at least {n} ranks (placeholder_group({n}))")
+    return DeviceMesh(torch.device(device).type,
+                      torch.arange(n).reshape(shape), mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The production mesh: 16x16 = 256 ranks over ("data", "model"); with
+    ``multi_pod`` 2 pods, 2x16x16 = 512 over ("pod", "data", "model").
+    ``device`` (default: CUDA) is the type of the tensors placed on it."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _device_mesh(shape, axes, device or "cuda")
+
+
+def make_debug_mesh(data: int = 1, model: int = 1, device=None):
+    """A small ("data", "model") mesh (tests; a 1x1 one for the dry-run
+    against a real step)."""
+    return _device_mesh((data, model), ("data", "model"), device or "cuda")
 
 
 def client_mesh_size(n_clients: int, n_devices: int) -> int:

@@ -13,8 +13,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .layers import (apply_rope, dense_init, remat, rmsnorm, rmsnorm_init,
-                     wcol, wrow)
+from .layers import (BATCH, apply_rope, dense_init, is_dtensor,
+                     merge_heads, remat, reshape, rmsnorm, rmsnorm_init,
+                     shard, wcol, whole_dim, wrow)
 
 NEG_INF = -1e30
 
@@ -29,7 +30,19 @@ def gqa_init(gen, d_model, n_heads, n_kv, d_head, dtype=torch.float32):
 
 
 def _split_heads(x, n, d):
-    return x.reshape(*x.shape[:-1], n, d)
+    return reshape(x, *x.shape[:-1], n, d)
+
+
+def _head_split(q) -> int:
+    """Into how many blocks a mesh splits ``q``'s head dim (1: none, or a
+    plain tensor)."""
+    if not is_dtensor(q):
+        return 1
+    n = 1
+    for m, p in enumerate(q.placements):
+        if p.is_shard(2):
+            n *= q.device_mesh.size(m)
+    return n
 
 
 def _sdpa(q, k, v, mask):
@@ -37,6 +50,12 @@ def _sdpa(q, k, v, mask):
     to (B,1,S,T) -> (B,S,H,dh). Scores in q's dtype, softmax in fp32."""
     b, s, h, dh = q.shape
     kv = k.shape[2]
+    if kv % _head_split(q):
+        # a mesh split of the query heads finer than the kv heads (128 over
+        # 8 on 16 ranks) cannot carry into the (kv, group) view, and DTensor
+        # cannot merge two split batch dims into the score matmul's batch:
+        # the heads are gathered, each rank attends with all of them
+        q = whole_dim(q, 2)
     qg = q.reshape(b, s, kv, h // kv, dh)
     # sqrt(dh) rounded to fp32, then to q's dtype, as the reference
     scale = float(torch.tensor(dh ** 0.5, dtype=torch.float32).to(q.dtype))
@@ -108,6 +127,8 @@ def gqa_prefill(p, x, n_heads, n_kv, d_head, *, causal=True,
     q = _split_heads(x @ wcol(p["wq"]), n_heads, d_head)
     k = _split_heads(x @ wcol(p["wk"]), n_kv, d_head)
     v = _split_heads(x @ wcol(p["wv"]), n_kv, d_head)
+    q = shard(q, BATCH, None, "model", None)
+    k = shard(k, BATCH, None, "model", None)
     if use_rope:
         pos = torch.arange(s, device=x.device)[None]
         q = apply_rope(q, pos, rope_theta)
@@ -124,7 +145,8 @@ def gqa_prefill(p, x, n_heads, n_kv, d_head, *, causal=True,
             mask = torch.ones((1, 1, s, s), dtype=torch.bool,
                               device=x.device)
         out = _sdpa(q, k, v, mask)
-    return out.reshape(b, s, n_heads * d_head) @ wrow(p["wo"])
+    out = shard(out, BATCH, None, "model", None)
+    return merge_heads(out) @ wrow(p["wo"])
 
 
 class KVCache(NamedTuple):
@@ -159,6 +181,22 @@ def _valid_slots(pos, cap: int, ring: bool):
     return idx <= pos
 
 
+def _write_slot(cache, slot, x):
+    """``x`` (B, 1, ...) into ``cache`` (B, C, ...) at ``slot``, in place.
+    On a DTensor cache (the dry-run) the write is a select over the slot
+    axis, ``where(c == slot, x, cache)``, copied back in place: DTensor's
+    ``index_copy_`` cannot write along a split axis (a long context splits
+    C over 'data'), and the select keeps every block where it is, as the
+    partitioned ``dynamic_update_slice`` of the reference does."""
+    x = x.to(cache.dtype)
+    if not is_dtensor(cache):
+        cache.index_copy_(1, slot, x)
+        return
+    at = torch.arange(cache.shape[1], device=cache.device) == slot
+    at = at.reshape((1, -1) + (1,) * (cache.ndim - 2))
+    cache.copy_(torch.where(at, x, cache))
+
+
 def gqa_decode(p, x, cache: KVCache, n_heads, n_kv, d_head, *,
                ring: bool = False, use_rope=True, rope_theta=10000.0):
     """One-token decode step. x: (B, 1, D) -> ((B, 1, D), new cache).
@@ -177,11 +215,13 @@ def gqa_decode(p, x, cache: KVCache, n_heads, n_kv, d_head, *,
         q = apply_rope(q, pq, rope_theta)
         k = apply_rope(k, pq, rope_theta)
     slot = _cache_slot(pos, cap, ring)
-    cache.k.index_copy_(1, slot, k.to(cache.k.dtype))
-    cache.v.index_copy_(1, slot, v.to(cache.v.dtype))
+    _write_slot(cache.k, slot, k)
+    _write_slot(cache.v, slot, v)
+    new_k = shard(cache.k, BATCH, None, "model", None)
+    new_v = shard(cache.v, BATCH, None, "model", None)
     mask = _valid_slots(pos, cap, ring)[None, None, None, :]
-    out = _sdpa(q, cache.k, cache.v, mask)
-    out = out.reshape(b, 1, n_heads * d_head) @ wrow(p["wo"])
+    out = _sdpa(q, new_k, new_v, mask)
+    out = merge_heads(out) @ wrow(p["wo"])
     return out, KVCache(cache.k, cache.v, pos + 1)
 
 
@@ -215,6 +255,7 @@ def mla_prefill(p, x, n_heads, kv_lora, d_nope, d_rope, d_v, *, causal=True,
     k_rope = apply_rope((x @ p["w_kr"])[:, :, None, :], pos, rope_theta)
     k_nope = _split_heads(latent @ wcol(p["w_uk"]), n_heads, d_nope)
     v = _split_heads(latent @ wcol(p["w_uv"]), n_heads, d_v)
+    q_nope = shard(q_nope, BATCH, None, "model", None)
     q_c = torch.cat([q_nope, q_rope], dim=-1)
     k_c = torch.cat([k_nope, k_rope.expand(b, s, n_heads, d_rope)], dim=-1)
     if s > CHUNK_THRESHOLD:
@@ -223,7 +264,7 @@ def mla_prefill(p, x, n_heads, kv_lora, d_nope, d_rope, d_v, *, causal=True,
         mask = causal_mask(s, device=x.device) if causal else torch.ones(
             (1, 1, s, s), dtype=torch.bool, device=x.device)
         out = _sdpa(q_c, k_c, v, mask)
-    return out.reshape(b, s, n_heads * d_v) @ wrow(p["wo"])
+    return merge_heads(out) @ wrow(p["wo"])
 
 
 class MLACache(NamedTuple):
@@ -259,10 +300,10 @@ def mla_decode(p, x, cache: MLACache, n_heads, kv_lora, d_nope, d_rope, d_v,
     k_rope_t = apply_rope((x @ p["w_kr"])[:, :, None, :], pq,
                           rope_theta)[:, :, 0]
     slot = _cache_slot(pos, cap, False)
-    cache.latent.index_copy_(1, slot, latent_t.to(cache.latent.dtype))
-    cache.k_rope.index_copy_(1, slot, k_rope_t.to(cache.k_rope.dtype))
+    _write_slot(cache.latent, slot, latent_t)
+    _write_slot(cache.k_rope, slot, k_rope_t)
     lat, kr = cache.latent, cache.k_rope
-    w_uk = p["w_uk"].reshape(kv_lora, n_heads, d_nope)
+    w_uk = reshape(p["w_uk"], kv_lora, n_heads, d_nope)
     q_lat = torch.einsum("bshd,lhd->bshl", q_nope, w_uk)         # absorb W_uk
     scores = (torch.einsum("bshl,btl->bhst", q_lat, lat)
               + torch.einsum("bshd,btd->bhst", q_rope, kr))
@@ -273,9 +314,9 @@ def mla_decode(p, x, cache: MLACache, n_heads, kv_lora, d_nope, d_rope, d_v,
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     att = torch.softmax(scores.float(), dim=-1).to(x.dtype)
     o_lat = torch.einsum("bhst,btl->bshl", att, lat)             # (B,1,H,kvl)
-    w_uv = p["w_uv"].reshape(kv_lora, n_heads, d_v)
+    w_uv = reshape(p["w_uv"], kv_lora, n_heads, d_v)
     out = torch.einsum("bshl,lhv->bshv", o_lat, w_uv)
-    out = out.reshape(b, 1, n_heads * d_v) @ wrow(p["wo"])
+    out = merge_heads(out) @ wrow(p["wo"])
     return out, MLACache(lat, kr, pos + 1)
 
 
@@ -293,7 +334,7 @@ def cross_attn(p, x, enc_kv, n_heads, n_kv, d_head):
     mask = torch.ones((1, 1, s, k.shape[1]), dtype=torch.bool,
                       device=x.device)
     out = _sdpa(q, k, v, mask)
-    return out.reshape(b, s, n_heads * d_head) @ wrow(p["wo"])
+    return merge_heads(out) @ wrow(p["wo"])
 
 
 def cross_kv(p, enc_out, n_kv, d_head):

@@ -33,7 +33,12 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .layers import _normal, dense_init, swiglu, swiglu_init
+from .layers import BATCH, _normal, dense_init, shard, swiglu, swiglu_init
+
+
+def _wexp(w):
+    """Expert weights at use: ('model' on E, rest gathered from FSDP)."""
+    return shard(w, "model", None, None)
 
 
 def moe_init(gen, d_model, d_ff_expert, n_experts, n_shared, d_ff_shared,
@@ -112,11 +117,16 @@ def moe_apply(p, x, n_experts: int, top_k: int, capacity_factor: float = 1.25,
     src = torch.clamp(slot_token - 1, min=0)
     gathered = xt[src] * (slot_token > 0)[:, None].to(x.dtype)  # (E*C, D)
     xe = gathered.reshape(n_experts, cap, d)
+    # experts over 'model', capacity over 'data' (else every data rank
+    # would repeat the whole expert matmuls)
+    xe = shard(xe, "model", "data", None)
 
     # ---- expert computation (SwiGLU), batched over experts
-    h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["w_gate"]))
-    h = h * torch.einsum("ecd,edf->ecf", xe, p["w_up"])
-    ye = torch.einsum("ecf,efd->ecd", h, p["w_down"]).reshape(spare, d)
+    h = F.silu(torch.einsum("ecd,edf->ecf", xe, _wexp(p["w_gate"])))
+    h = h * torch.einsum("ecd,edf->ecf", xe, _wexp(p["w_up"]))
+    h = shard(h, "model", "data", None)
+    ye = torch.einsum("ecf,efd->ecd", h,
+                      _wexp(p["w_down"])).reshape(spare, d)
 
     # ---- weighted outputs back to tokens: each route, in (token, k)
     # order, reads its slot (a dropped one the zero row past the grid)
@@ -124,6 +134,7 @@ def moe_apply(p, x, n_experts: int, top_k: int, capacity_factor: float = 1.25,
     route_slot[order] = slot
     ye = torch.cat([ye * slot_gate[:, None], ye.new_zeros((1, d))])
     y = ye[route_slot].reshape(t, top_k, d).sum(dim=1).reshape(b, s, d)
+    y = shard(y, BATCH, None, None)
     if "shared" in p:
         y = y + swiglu(p["shared"], x)
 

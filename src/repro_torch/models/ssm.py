@@ -23,7 +23,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .layers import _normal, dense_init, wcol, wrow
+from .layers import (BATCH, _normal, dense_init, reshape, shard, wcol,
+                     wrow)
 
 
 # ---------------------------------------------------------------------- Mamba2
@@ -68,10 +69,10 @@ def _ssd_chunk_scan(xh, bmat, cmat, dt, a_per_head, chunk: int):
         raise ValueError(f"_ssd_chunk_scan: S = {s} is not a multiple of the "
                          f"chunk {chunk} (the reference's reshape fails too)")
     nc = s // chunk
-    xs = xh.reshape(b, nc, chunk, h, p).float()
-    bs = bmat.reshape(b, nc, chunk, n)
-    cs = cmat.reshape(b, nc, chunk, n)
-    dts = dt.reshape(b, nc, chunk, h)
+    xs = reshape(xh, b, nc, chunk, h, p).float()
+    bs = reshape(bmat, b, nc, chunk, n)
+    cs = reshape(cmat, b, nc, chunk, n)
+    dts = reshape(dt, b, nc, chunk, h)
 
     # per-step log decay: da = dt * a  (negative)
     da = dts * a_per_head                                    # (B,NC,L,H)
@@ -109,7 +110,7 @@ def _ssd_chunk_scan(xh, bmat, cmat, dt, a_per_head, chunk: int):
     decay_from_start = torch.exp(cum)                        # (B,NC,L,H)
     y_inter = torch.einsum("bnli,bnhpi,bnlh->bnlhp", cs, states,
                            decay_from_start)
-    return (y_intra + y_inter).reshape(b, s, h, p)
+    return reshape(y_intra + y_inter, b, s, h, p)
 
 
 def _split_in_proj(zxbcdt, d_inner, d_state, n_heads):
@@ -131,10 +132,11 @@ def mamba2_forward(p, x, d_state, n_heads, d_head, chunk: int = 256):
     cmat = conv_out[..., d_inner + d_state:]
     dt = F.softplus(dt.float() + p["dt_bias"])                  # (B,S,H)
     a = -torch.exp(p["A_log"])                                  # (H,)
-    xh = xr.reshape(b, s, n_heads, d_head)
+    xh = reshape(xr, b, s, n_heads, d_head)
+    xh = shard(xh, BATCH, None, "model", None)
     y = _ssd_chunk_scan(xh, bmat.float(), cmat.float(), dt, a, min(chunk, s))
     y = y + xh * p["D"][None, None, :, None]
-    y = (y.reshape(b, s, d_inner) * F.silu(z)).to(x.dtype)
+    y = (reshape(y, b, s, d_inner) * F.silu(z)).to(x.dtype)
     return y @ wrow(p["w_out"])
 
 
@@ -169,12 +171,12 @@ def mamba2_decode(p, x, cache: Mamba2Cache, d_state, n_heads, d_head):
     dt = F.softplus(dt.float() + p["dt_bias"])                  # (B,H)
     a = -torch.exp(p["A_log"])
     dec = torch.exp(dt * a)                                     # (B,H)
-    xh = xr.reshape(b, n_heads, d_head).float()
+    xh = reshape(xr, b, n_heads, d_head).float()
     upd = torch.einsum("bhp,bn,bh->bhpn", xh, bmat, dt)
     state = cache.state.float() * dec[..., None, None] + upd
     y = torch.einsum("bhpn,bn->bhp", state, cmat) \
         + xh * p["D"][None, :, None]
-    y = (y.reshape(b, d_inner) * F.silu(z)).to(x.dtype)
+    y = (reshape(y, b, d_inner) * F.silu(z)).to(x.dtype)
     out = (y @ p["w_out"])[:, None]
     return out, Mamba2Cache(state.to(cache.state.dtype), hist[:, 1:])
 
@@ -233,11 +235,12 @@ def rwkv6_forward(p, x, n_heads, d_head):
     b, s, d = x.shape
     xr, xk, xv, xw, xg = _rwkv_mix(p, x, torch.zeros((b, d), dtype=x.dtype,
                                                       device=x.device))
-    r = (xr @ wcol(p["wr"])).reshape(b, s, n_heads, d_head)
-    k = (xk @ wcol(p["wk"])).reshape(b, s, n_heads, d_head)
-    v = (xv @ wcol(p["wv"])).reshape(b, s, n_heads, d_head)
+    r = reshape(xr @ wcol(p["wr"]), b, s, n_heads, d_head)
+    k = reshape(xk @ wcol(p["wk"]), b, s, n_heads, d_head)
+    v = reshape(xv @ wcol(p["wv"]), b, s, n_heads, d_head)
     g = F.silu(xg @ wcol(p["wg"]))
-    logw = _log_decay(p, xw).reshape(b, s, n_heads, d_head)
+    logw = reshape(_log_decay(p, xw), b, s, n_heads, d_head)
+    r = shard(r, BATCH, None, "model", None)
 
     if s % RWKV_CHUNK == 0:
         outs = _rwkv6_wkv_chunked(r, k, v, logw, p["u"], RWKV_CHUNK)
@@ -253,7 +256,7 @@ def rwkv6_forward(p, x, n_heads, d_head):
             outs.append(torch.einsum("bhk,bhkv->bhv", rt, state + u * kv))
             state = state * torch.exp(logw[:, t])[..., None] + kv
         outs = torch.stack(outs, dim=1)
-    y = outs.reshape(b, s, n_heads * d_head).to(x.dtype)
+    y = reshape(outs, b, s, n_heads * d_head).to(x.dtype)
     return _rwkv_out(p, y, g, x.dtype)
 
 
@@ -318,16 +321,16 @@ def rwkv6_decode(p, x, cache: RWKV6Cache, n_heads, d_head):
     """O(1) decode step. x: (B, 1, D). The decay is not clamped."""
     b = x.shape[0]
     xr, xk, xv, xw, xg = _rwkv_mix(p, x, cache.x_prev)
-    r = (xr @ p["wr"]).reshape(b, n_heads, d_head).float()
-    k = (xk @ p["wk"]).reshape(b, n_heads, d_head).float()
-    v = (xv @ p["wv"]).reshape(b, n_heads, d_head).float()
+    r = reshape(xr @ p["wr"], b, n_heads, d_head).float()
+    k = reshape(xk @ p["wk"], b, n_heads, d_head).float()
+    v = reshape(xv @ p["wv"], b, n_heads, d_head).float()
     g = F.silu(xg @ p["wg"])[:, 0]
-    w = torch.exp(_log_decay(p, xw)).reshape(b, n_heads, d_head)
+    w = reshape(torch.exp(_log_decay(p, xw)), b, n_heads, d_head)
     kv = torch.einsum("bhk,bhv->bhkv", k, v)
     out = torch.einsum("bhk,bhkv->bhv", r,
                        cache.state + p["u"][None, :, :, None] * kv)
     state = cache.state * w[..., None] + kv
-    y = out.reshape(b, n_heads * d_head).to(x.dtype)
+    y = reshape(out, b, n_heads * d_head).to(x.dtype)
     return _rwkv_out(p, y, g, x.dtype)[:, None], RWKV6Cache(state, x[:, 0])
 
 
@@ -347,4 +350,5 @@ def rwkv6_channel_mix(p, x, x_prev=None):
     shifted = torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
     xk = x * p["mix"][0] + shifted * (1 - p["mix"][0])
     h = torch.square(torch.relu(xk @ wcol(p["wk"])))
+    h = shard(h, BATCH, None, "model")
     return h @ wrow(p["wv"])

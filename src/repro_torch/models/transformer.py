@@ -27,13 +27,14 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..device import resolve_device
+from ..device import is_dtensor, resolve_device
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from . import attention as attn
 from . import moe as moe_lib
 from . import ssm as ssm_lib
-from .layers import (dense_init, embed_init, remat, rmsnorm, rmsnorm_init,
-                     swiglu, swiglu_init, wcol)
+from .layers import (BATCH, dense_init, embed_init, gather_seq, remat,
+                     rmsnorm, rmsnorm_init, shard, shard_seq, swiglu,
+                     swiglu_init, wcol, whole_dim)
 
 
 def _dtype(cfg: ArchConfig):
@@ -120,17 +121,19 @@ def _mlp(p, h, cfg: ArchConfig, use_moe: bool):
 def dense_block(p, x, cfg: ArchConfig, use_moe: bool, window=None):
     """Pre-norm attention + SwiGLU (or MoE) block: (B, S, D) -> ((B, S, D),
     aux)."""
-    x = x + _attn_prefill(p["attn"], rmsnorm(p["attn_norm"], x), cfg,
-                          window=window)
-    y, aux = _mlp(p, rmsnorm(p["mlp_norm"], x), cfg, use_moe)
-    return x + y, aux
+    x = shard_seq(x)
+    x = x + shard_seq(_attn_prefill(p["attn"], _norm(p["attn_norm"], x),
+                                    cfg, window=window))
+    x = shard_seq(x)
+    y, aux = _mlp(p, _norm(p["mlp_norm"], x), cfg, use_moe)
+    return shard_seq(x + shard_seq(y)), aux
 
 
 def dense_block_bidir(p, x, cfg: ArchConfig):
     """The encoder's block: bidirectional attention + SwiGLU."""
-    x = x + _attn_prefill(p["attn"], rmsnorm(p["attn_norm"], x), cfg,
+    x = x + _attn_prefill(p["attn"], _norm(p["attn_norm"], x), cfg,
                           causal=False)
-    return x + swiglu(p["mlp"], rmsnorm(p["mlp_norm"], x))
+    return x + swiglu(p["mlp"], _norm(p["mlp_norm"], x))
 
 
 def dense_block_decode(p, x, cache, cfg: ArchConfig, use_moe: bool,
@@ -154,8 +157,9 @@ def _cross(p, x, enc_out, cfg: ArchConfig):
     """The decoder block's cross attention over the encoder output, its
     k and v projected anew (in every decode step too, as the reference)."""
     kv = attn.cross_kv(p["xattn"], enc_out, cfg.n_kv, cfg.d_head)
-    return x + attn.cross_attn(p["xattn"], rmsnorm(p["xattn_norm"], x), kv,
-                               cfg.n_heads, cfg.n_kv, cfg.d_head)
+    return x + shard_seq(attn.cross_attn(p["xattn"],
+                                         _norm(p["xattn_norm"], x), kv,
+                                         cfg.n_heads, cfg.n_kv, cfg.d_head))
 
 
 # =====================================================================
@@ -169,9 +173,11 @@ def _init_mamba_block(gen, cfg: ArchConfig):
 
 
 def mamba_block(p, x, cfg: ArchConfig):
-    return x + ssm_lib.mamba2_forward(p["mamba"], rmsnorm(p["norm"], x),
-                                      cfg.d_state, cfg.ssm_heads,
-                                      cfg.ssm_head_dim, cfg.ssm_chunk)
+    x = shard_seq(x)
+    y = ssm_lib.mamba2_forward(p["mamba"], _norm(p["norm"], x),
+                               cfg.d_state, cfg.ssm_heads, cfg.ssm_head_dim,
+                               cfg.ssm_chunk)
+    return shard_seq(x + shard_seq(y))
 
 
 def mamba_block_decode(p, x, cache, cfg: ArchConfig):
@@ -192,10 +198,13 @@ def _init_rwkv_block(gen, cfg: ArchConfig):
 
 
 def rwkv_block(p, x, cfg: ArchConfig):
-    x = x + ssm_lib.rwkv6_forward(p["time_mix"], rmsnorm(p["tm_norm"], x),
-                                  cfg.ssm_heads, cfg.ssm_head_dim)
-    return x + ssm_lib.rwkv6_channel_mix(p["chan_mix"],
-                                         rmsnorm(p["cm_norm"], x))
+    x = shard_seq(x)
+    x = x + shard_seq(ssm_lib.rwkv6_forward(
+        p["time_mix"], _norm(p["tm_norm"], x), cfg.ssm_heads,
+        cfg.ssm_head_dim))
+    x = x + shard_seq(ssm_lib.rwkv6_channel_mix(p["chan_mix"],
+                                                _norm(p["cm_norm"], x)))
+    return shard_seq(x)
 
 
 class RWKVBlockCache(NamedTuple):
@@ -310,6 +319,31 @@ def _scan_stack(block_fn, stacked_params, x, do_remat: bool = False):
     return x, torch.sum(torch.stack(auxes))
 
 
+def _norm(p, x):
+    """RMSNorm of the residual, its sequence split gathered for the
+    matmuls that follow (``gather_seq``). A branch's output is split the
+    residual's way (``shard_seq``) before it is added back: its gradient
+    then reaches the branch's last matmul gathered. (A sequence split
+    that meets a matmul merges into its (B·S, D) view as a strided split,
+    whose redistribution DTensor plans by a search that takes minutes a
+    matmul on the 2x16x16 mesh.)"""
+    return gather_seq(rmsnorm(p, x))
+
+
+def _embed(emb, tokens):
+    """The rows of ``emb`` (vocab over 'model', as the reference places it
+    at use) for ``tokens``. On a DTensor the lookup is ``F.embedding``,
+    whose vocab-split form DTensor knows (its indexing backward, an
+    ``index_put``, has no working placement rule)."""
+    emb = shard(emb, "model", None)
+    if is_dtensor(emb):
+        # the looked-up rows are partial sums over the vocab split, summed
+        # at once (DTensor keeps their mask only until the next op)
+        return shard(F.embedding(tokens.long(), emb), BATCH,
+                     *[None] * tokens.ndim)
+    return emb[tokens.long()]
+
+
 def _no_aux(block_fn):
     """A block without an aux loss as ``_scan_stack`` takes it."""
     def fn(p, x):
@@ -330,8 +364,9 @@ def lm_forward(params, cfg: ArchConfig, tokens=None, embeds=None,
     if embeds is not None:
         pieces.append(embeds.to(_dtype(cfg)))
     if tokens is not None:
-        pieces.append(params["emb"][tokens.long()])
+        pieces.append(_embed(params["emb"], tokens))
     x = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1)
+    x = shard(x, BATCH, None, None)
 
     if cfg.glasu is not None:
         x, aux_total, _ = _glasu_trunk(params, x, cfg, window)
@@ -360,10 +395,11 @@ def lm_forward(params, cfg: ArchConfig, tokens=None, embeds=None,
             lambda p, h: dense_block(p, h, cfg, cfg.moe, window),
             params["blocks"], x, cfg.remat)
 
-    x = rmsnorm(params["final_norm"], x)
+    x = _norm(params["final_norm"], x)
     if return_hidden:
         return x, aux_total
-    return x @ wcol(params["unemb"]), aux_total
+    logits = x @ wcol(params["unemb"])
+    return shard(logits, BATCH, None, "model"), aux_total
 
 
 def encode(params, cfg: ArchConfig, src_embeds):
@@ -371,9 +407,9 @@ def encode(params, cfg: ArchConfig, src_embeds):
     the output every decoder layer attends to (``lm_forward``'s, and
     ``lm_decode_step``'s ``enc_out``). It goes through the decoder's own
     ``final_norm``, as in the reference."""
+    enc = shard(src_embeds.to(_dtype(cfg)), BATCH, None, None)
     enc, _ = _scan_stack(_no_aux(lambda p, h: dense_block_bidir(p, h, cfg)),
-                         params["enc"], src_embeds.to(_dtype(cfg)),
-                         cfg.remat)
+                         params["enc"], enc, cfg.remat)
     return rmsnorm(params["final_norm"], enc)
 
 
@@ -469,16 +505,17 @@ def _uses_ring(cfg: ArchConfig, caches) -> bool:
 def _decode_stack(stacked, caches, x, layer_fn):
     """One token through a layer stack: ``x, cache_i = layer_fn(p_i, x,
     cache_i)`` for each layer, ``cache_i`` views of the stacked caches.
-    A cache leaf every layer wrote in place (the KV and MLA caches) stays
-    the stacked tensor; the others (positions, recurrent states) are
-    stacked anew."""
+    A cache leaf every layer wrote in place (the KV and MLA caches: the
+    layer hands back the very view it was given) stays the stacked tensor;
+    the others (positions, recurrent states) are stacked anew."""
     old = tree_leaves(caches)
-    new = []
+    given, new = [], []
     for i, p in enumerate(_unstack(stacked)):
-        x, nc = layer_fn(p, x, _layer(caches, i))
+        c = _layer(caches, i)
+        x, nc = layer_fn(p, x, c)
+        given.append(tree_leaves(c))
         new.append(tree_leaves(nc))
-    leaves = [o if all(n[j].data_ptr() == o[i].data_ptr()
-                       for i, n in enumerate(new))
+    leaves = [o if all(n[j] is g[j] for g, n in zip(given, new))
               else torch.stack([n[j] for n in new])
               for j, o in enumerate(old)]
     return x, tree_unflatten(caches, leaves)
@@ -488,7 +525,7 @@ def lm_decode_step(params, caches, cfg: ArchConfig, token, enc_out=None):
     """One greedy decode step. token: (B, 1) int -> (next_token (B, 1)
     int32, caches); the encoder-decoder also takes the encoder output
     ``enc_out`` (B, S_src, D). KV and MLA caches are written in place."""
-    x = params["emb"][token.long()]
+    x = _embed(params["emb"], token)
     ring = _uses_ring(cfg, caches)
     caches = dict(caches)
 
@@ -536,7 +573,10 @@ def lm_decode_step(params, caches, cfg: ArchConfig, token, enc_out=None):
                                             dense(cfg.moe))
     x = rmsnorm(params["final_norm"], x)
     logits = x @ wcol(params["unemb"])
-    return torch.argmax(logits, dim=-1).to(torch.int32), caches
+    # the vocab gathered first on a mesh (DTensor's argmax over a split
+    # dim fails on a 3-D mesh)
+    return (torch.argmax(whole_dim(logits, -1), dim=-1).to(torch.int32),
+            caches)
 
 
 # =====================================================================
@@ -616,12 +656,16 @@ def _glasu_local_block(p, x_loc, cfg: ArchConfig, window, positions=None,
         else torch.arange(s, device=x_loc.device)[None]
     q = attn.apply_rope(q.reshape(b, s, m * hm, dh), pos, cfg.rope_theta)
     k = attn.apply_rope(k.reshape(b, s, m * kvm, dh), pos, cfg.rope_theta)
+    q = shard(q.reshape(b, s, m, hm, dh), BATCH, None, "model", None,
+              None).reshape(b, s, m * hm, dh)
+    k = shard(k.reshape(b, s, m, kvm, dh), BATCH, None, "model", None,
+              None).reshape(b, s, m * kvm, dh)
     if cache is not None:
         kc, vc, cpos = cache
         cap = kc.shape[1]
         slot = attn._cache_slot(cpos, cap, ring)
-        kc.index_copy_(1, slot, k.reshape(b, s, m, kvm, dh))
-        vc.index_copy_(1, slot, v.reshape(b, s, m, kvm, dh))
+        attn._write_slot(kc, slot, k.reshape(b, s, m, kvm, dh))
+        attn._write_slot(vc, slot, v.reshape(b, s, m, kvm, dh))
         mask = attn._valid_slots(cpos, cap, ring)[None, None, None, :]
         out = attn._sdpa(q, kc.reshape(b, cap, m * kvm, dh),
                          vc.reshape(b, cap, m * kvm, dh), mask)
@@ -638,8 +682,9 @@ def _glasu_local_block(p, x_loc, cfg: ArchConfig, window, positions=None,
     h = rmsnorm_m(p["mlp_norm"], x_loc)
     y = F.silu(torch.einsum("bsmd,mdf->bsmf", h, p["w_gate"])) \
         * torch.einsum("bsmd,mdf->bsmf", h, p["w_up"])
+    y = shard(y, BATCH, None, "model", None)
     x_loc = x_loc + torch.einsum("bsmf,mfd->bsmd", y, p["w_down"])
-    return x_loc, new_cache
+    return shard(x_loc, BATCH, None, "model", None), new_cache
 
 
 def _glasu_trunk(params, x, cfg: ArchConfig, window, collect_stale=False,
@@ -663,14 +708,15 @@ def _glasu_trunk(params, x, cfg: ArchConfig, window, collect_stale=False,
             full = _replace_own_shard(stale_g, x_loc, m)
         else:
             full = x_loc.reshape(b, s, d)
+            full = shard(full, BATCH, None, None)     # forces the all-gather
         full_in = full
         full, aux = dense_block(gp["sync"], full, cfg, False, window)
-        x_loc = full.reshape(b, s, m, dm)
+        x_loc = shard(full.reshape(b, s, m, dm), BATCH, None, "model", None)
         for lp in _unstack(gp["locals"]) if g.sync_every > 1 else []:
             x_loc, _ = _glasu_local_block(lp, x_loc, cfg, window)
         return x_loc, aux, full_in
 
-    x_loc = x.reshape(b, s, m, dm)
+    x_loc = shard(x.reshape(b, s, m, dm), BATCH, None, "model", None)
     auxes, stale_out = [], []
     for gi, gp in enumerate(_unstack(params["groups"])):
         args = (gp, None if stale is None else stale[gi], x_loc)
@@ -690,7 +736,7 @@ def _replace_own_shard(full, x_loc, m):
     the stale tensor contributes nothing but its shape: a stale microstep
     computes the fresh forward (ROADMAP Queue 3)."""
     b, s, d = full.shape
-    return x_loc.reshape(b, s, d)
+    return shard(x_loc.reshape(b, s, d), BATCH, None, None)
 
 
 def _glasu_decode(params, x, kv_caches, cfg: ArchConfig, ring):
