@@ -102,6 +102,31 @@ Phases, each printing its own lines:
             goes, 4 SGD rounds against vmapped (SHARD_TOL), and the sharded
             serve engine's 16-query answer cold and warm against the
             vmapped engine's (equal bills, the record_log replay);
+   examples the five entry points of ``repro_torch.examples``, each through
+            its ``main`` at the reference script's defaults: quickstart
+            (cora-gcnii-glasu, 60 rounds, int8: test accuracy >= 0.90, exactly
+            13,685,760 B); vfl_graph_training (suzhou, N 3137, d 979, 150
+            rounds: centralized on a one-client grid, standalone,
+            simulated-centralized, GLASU Q=1 / Q=4 / int8 / top-k k 8 /
+            secure-agg + DP; each row's bytes exactly the reference's price,
+            centralized and every GLASU row >= 0.95, GLASU Q=4 within 0.03
+            of centralized, standalone below every GLASU row; each row's GCNII
+            launches counted, its first launch held to the plain version
+            at 1e-5, its first exact-eval launch (all 3137 rows, trained
+            activations) at 1e-5 times its largest output magnitude);
+            serve_glasu (a checkpoint the port wrote, restored by
+            from_checkpoint: cold exactly 455,112 B with fresh rows {3: 16,
+            1: 278}, warm 0 B and bitwise, int8 123,480 B, the MicroBatcher's
+            8 single-node answers equal to the cold ones in <= 8
+            dispatches); serve_decode, full caches and --window 8 ((4, 32)
+            tokens, no kernel; fp32 card vs CPU from the same parameters,
+            the card's tokens fed step by step: every step's logits at
+            rtol = atol = 1e-4 and the greedy tokens their argmax);
+            transformer_glasu (steps 2, 42, 60, finite losses; one call with
+            momentum SGD card vs CPU: loss, gradients and updated parameters
+            at 1e-4); after the serve phase, SmolLM-360M at published widths
+            with a 1024-slot ring (bf16, B 4): 32 decode steps at positions
+            4096-4127, finite logits, ms a step beside the full cache's;
 6. powerlaw builds ``powerlaw-1m`` (2^20 nodes, its 268 MB feature file in
             a temporary directory removed at exit), trains
             ``powerlaw1m-gcn-glasu`` for its 50 rounds (finite losses, the
@@ -279,6 +304,28 @@ SHARD_TOL = dict(rtol=5e-5, atol=5e-5)
 BACKEND_PRESET = "cora-gcnii-glasu"
 SIM_ROUNDS = 4
 FAULT_AUDIT_ROUNDS = 4
+# the examples phase: repro_torch.examples at the reference scripts'
+# defaults (examples/*.py). Every bill is a price, so exact: the reference's
+# prices, pinned by tests/test_torch_examples.py. Accuracy floors: the
+# verify skill's 0.90 for the quickstart (the reference reads 0.984, the
+# port draws other initial parameters); PERF.md §2's GCNII 0.95 for the
+# centralized and every GLASU row on suzhou, GLASU Q=4 within 0.03 of
+# centralized (the paper's claim) and standalone below every GLASU row
+QUICKSTART_COMM_BYTES = 13_685_760          # 60 rounds x 228,096 B (int8)
+QUICKSTART_MIN_ACC = 0.90
+VFL_ROUNDS = 150
+VFL_COMM_BYTES = {"centralized (M=1)": 0, "standalone (no comm)": 0,
+                  "simulated-centralized K=4": 198_432_000,
+                  "GLASU K=2 Q=1": 123_552_000, "GLASU K=2 Q=4": 123_552_000,
+                  "GLASU + int8 exchange": 34_214_400,
+                  "GLASU + topk_ef k=8": 17_107_200,
+                  "GLASU + secure-agg + DP": 123_552_000}
+VFL_MIN_ACC, VFL_Q4_SLACK = 0.95, 0.03
+# serve_glasu: the cold 16-query answer's bill and fresh rows (int8:
+# SERVE_WIRE_BYTES)
+SERVE_GLASU_BILL = (455_112, {3: 16, 1: 278})
+TFM_GLASU_STEPS = [2, 42, 60]               # printed state.step, 30 calls
+RING_WINDOW = 1024                          # the full-width ring's slots
 # H100 SXM peaks at its full 700 W limit (NVIDIA's data sheet): device-memory
 # rate and dense fp32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1050,17 +1097,20 @@ def phase_grads_csr(torch, np, ops, csr_plan):
 
 class _Capture:
     """Records the inputs of every ``ops.<name>`` call (detached clones,
-    the first ``limit``) while active, so a kernel can be timed on exactly
+    the first ``limit``; with ``where``, of the calls whose positional
+    arguments it accepts) while active, so a kernel can be timed on exactly
     what the main path gave it. Used on a separate warm-up run, outside
-    the counted run."""
+    the counted run, or inside it where it launches nothing (the examples
+    phase)."""
 
-    def __init__(self, ops, name, limit=None):
-        self.ops, self.name, self.limit = ops, name, limit
+    def __init__(self, ops, name, limit=None, where=None):
+        self.ops, self.name, self.limit, self.where = ops, name, limit, where
         self.orig, self.calls = getattr(ops, name), []
 
     def __enter__(self):
         def recording(*args, **kw):
-            if self.limit is None or len(self.calls) < self.limit:
+            if (self.limit is None or len(self.calls) < self.limit) and \
+                    (self.where is None or self.where(args)):
                 self.calls.append(([a.detach().clone()
                                     if hasattr(a, "detach") else a
                                     for a in args], dict(kw)))
@@ -2695,6 +2745,7 @@ def phase_serve_lm(torch, mods, label, cfg, want_launches):
                                  f"positions {pos.tolist()}, tokens "
                                  f"{tuple(gen.shape)}")
         dmed = statistics.median(step_ms)
+        out["decode_ms"] = dmed
         print(f"serve: {label} decode {DECODE_STEPS} greedy steps, B="
               f"{PREFILL_B}, positions {PREFILL_S}.."
               f"{PREFILL_S + DECODE_STEPS - 1} of {DECODE_DEPTH}-deep caches:"
@@ -3050,45 +3101,59 @@ def _launch_text(launch):
 
 def _train_card_vs_cpu(torch, mods, cases=CARD_CPU_TRAIN,
                        prefix="train_lm"):
-    """One fp32 train step (momentum SGD, so the momentum buffer holds the
-    step's clipped gradients) of reduced SmolLM, reduced phi3.5-moe
-    (grad_accum 2) and the reduced SmolLM GLASU split (Q 3), from the same
-    parameters and batch on the card and on the CPU: the loss and every
-    gradient at GRAD_TOL."""
-    tfm, base = mods["tfm"], mods["base"]
+    """One fp32 train step of reduced SmolLM, reduced phi3.5-moe
+    (grad_accum 2) and the reduced SmolLM GLASU split (Q 3) on the card
+    against the CPU (``_card_vs_cpu_step``)."""
+    base = mods["base"]
     for arch, over, split in cases:
         cfg = base.get_reduced(arch).with_(optimizer="sgd", **over)
         if split:
             cfg = cfg.with_(glasu=mods["GlasuSplit"](*split))
-        params = tfm.init_lm(torch.Generator().manual_seed(SEED), cfg, "cpu")
         batch = mods["synth_train_batch"](
             cfg, mods["InputShape"]("t", 64, 2, "train"), seed=SEED)
-        res = {}
-        for dev in ("cpu", "cuda"):
-            _, step = mods["make_train_step"](cfg, dev)
-            opt = mods["steps"].make_optimizer(cfg)
-            p = mods["tree_map"](lambda t: t.to(dev), params)
-            state = mods["steps"].TrainState(p, opt.init(p), 0)
-            res[dev] = step(state, {k: v.to(dev) for k, v in batch.items()})
-        (cs, cm), (gs, gm) = res["cpu"], res["cuda"]
-        loss_d = abs(float(gm["loss"]) - float(cm["loss"]))
-        worst = 0.0
-        for a, b in zip(mods["tree_leaves"](cs.opt_state.momentum),
-                        mods["tree_leaves"](gs.opt_state.momentum)):
+        _card_vs_cpu_step(torch, mods, cfg, batch, prefix,
+                          f"{cfg.name}{' GLASU' if split else ''}")
+
+
+def _card_vs_cpu_step(torch, mods, cfg, batch, prefix, label):
+    """One train step (one Q-step call for a GLASU split) of ``cfg`` (an
+    ``optimizer="sgd"`` config: momentum SGD, so the momentum buffer holds
+    the step's clipped gradients and the update is linear in them) from the
+    same parameters, drawn on the CPU, and ``batch`` on the card and on the
+    CPU: the loss, every gradient and every updated parameter at
+    GRAD_TOL."""
+    tfm = mods["tfm"]
+    params = tfm.init_lm(torch.Generator().manual_seed(SEED), cfg, "cpu")
+    res = {}
+    for dev in ("cpu", "cuda"):
+        _, step = mods["make_train_step"](cfg, dev)
+        opt = mods["steps"].make_optimizer(cfg)
+        p = mods["tree_map"](lambda t: t.to(dev), params)
+        state = mods["steps"].TrainState(p, opt.init(p), 0)
+        res[dev] = step(state, {k: v.to(dev) for k, v in batch.items()})
+    (cs, cm), (gs, gm) = res["cpu"], res["cuda"]
+    loss_d = abs(float(gm["loss"]) - float(cm["loss"]))
+    worst = {}
+    for what, cpu_tree, card_tree in (
+            ("gradients", cs.opt_state.momentum, gs.opt_state.momentum),
+            ("parameters", cs.params, gs.params)):
+        worst[what] = 0.0
+        for a, b in zip(mods["tree_leaves"](cpu_tree),
+                        mods["tree_leaves"](card_tree)):
             b = b.cpu()
             if not torch.allclose(b, a, **GRAD_TOL):
-                raise AssertionError(f"{cfg.name} card vs CPU gradients: "
-                                     f"max abs diff "
-                                     f"{float((a - b).abs().max()):.3e}")
-            worst = max(worst, float((a - b).abs().max()))
-        if not math.isclose(float(gm["loss"]), float(cm["loss"]),
-                            rel_tol=GRAD_TOL["rtol"],
-                            abs_tol=GRAD_TOL["atol"]) or gs.step != cs.step:
-            raise AssertionError(f"{cfg.name} card vs CPU loss {loss_d:.3e}")
-        print(f"{prefix}: {cfg.name}{' GLASU' if split else ''} fp32 train "
-              f"step card vs CPU: loss {float(gm['loss']):.6f} (diff "
-              f"{loss_d:.3e}), gradients (the momentum buffers after step "
-              f"{gs.step}) max abs diff {worst:.3e} (rtol = atol = 1e-4)")
+                raise AssertionError(f"{label} card vs CPU {what}: max abs "
+                                     f"diff {float((a - b).abs().max()):.3e}")
+            worst[what] = max(worst[what], float((a - b).abs().max()))
+    if not math.isclose(float(gm["loss"]), float(cm["loss"]),
+                        rel_tol=GRAD_TOL["rtol"],
+                        abs_tol=GRAD_TOL["atol"]) or gs.step != cs.step:
+        raise AssertionError(f"{label} card vs CPU loss {loss_d:.3e}")
+    print(f"{prefix}: {label} fp32 train step card vs CPU: loss "
+          f"{float(gm['loss']):.6f} (diff {loss_d:.3e}), gradients (the "
+          f"momentum buffers after step {gs.step}) max abs diff "
+          f"{worst['gradients']:.3e}, updated parameters "
+          f"{worst['parameters']:.3e} (rtol = atol = 1e-4)")
 
 
 # ------------------------------------------------- the transformer families
@@ -3293,6 +3358,7 @@ def _family_serve(torch, mods, label, cfg, want_launches):
             raise AssertionError(f"{label} decode: launches {dcounts}, "
                                  f"positions {[p.tolist() for p in pos]}")
         dmed = statistics.median(step_ms)
+        out["decode_ms"] = dmed
         print(f"families: {label} decode {FAMILY_DECODE_STEPS} greedy steps, "
               f"B={b}, positions {s}..{depth - 1}: median {dmed:.3f} ms a "
               f"step ({b / dmed * 1e3:.0f} tokens/s), first {step_ms[0]:.3f} "
@@ -3485,21 +3551,247 @@ def phase_dryrun(torch, mods, card):
     return dict(flops=rec["flops"], traced=traced, peak=peak)
 
 
-def _replay(torch, captured, cuda_fn, plain_fn, bound_fn):
+# ------------------------------------------------------------ the examples
+def _only_launched(graph_agg, what, wrapper=None):
+    """The counts of a counted run just ended: ``wrapper``'s launches (0
+    with none) when it launched and no other kernel did."""
+    counts = _counts(graph_agg)
+    launches = counts.pop(wrapper) if wrapper else 0
+    if (wrapper and not launches) or any(counts.values()):
+        raise AssertionError(f"examples: {what}: {wrapper} launched "
+                             f"{launches} times, the other kernels {counts}")
+    return launches
+
+
+def phase_examples(torch, np, mods):
+    """The five entry points of ``repro_torch.examples``, each through its
+    ``main`` at the reference script's defaults on the card, with the
+    gates of the module docstring. Returns the GCNII launches and the
+    launches held to the plain version for the kernels line."""
+    from repro_torch.examples import (quickstart, serve_decode, serve_glasu,
+                                      transformer_glasu, vfl_graph_training)
+    graph_agg = mods["graph_agg"]
+    _zero_counts(graph_agg)                              # ---- counted run
+    q = quickstart.main([])
+    launches = _only_launched(graph_agg, "quickstart", "gcnii_layer_cuda")
+    print(f"examples: quickstart (cora-gcnii-glasu, 60 rounds, 4 a step, "
+          f"int8): test acc {q['test_acc']:.4f} (>= {QUICKSTART_MIN_ACC}), "
+          f"comm {q['comm_bytes']} B (exactly {QUICKSTART_COMM_BYTES}), "
+          f"{q['wall_seconds']:.3f} s, {launches} GCNII launches")
+    if q["comm_bytes"] != QUICKSTART_COMM_BYTES or q["rounds_run"] != 60 \
+            or q["test_acc"] < QUICKSTART_MIN_ACC:
+        raise AssertionError(f"examples: quickstart {q}")
+    out = dict(quickstart_launches=launches)
+    out.update(_examples_vfl(torch, mods, vfl_graph_training))
+    _zero_counts(graph_agg)                              # ---- counted run
+    s = serve_glasu.main([])
+    launches = _only_launched(graph_agg, "serve_glasu", "gcnii_layer_cuda")
+    bill = (s["cold_bytes"], s["fresh_rows"])
+    print(f"examples: serve_glasu (30 rounds to a checkpoint the port wrote, "
+          f"restored by from_checkpoint): cold {s['cold_bytes']} B, fresh "
+          f"rows {s['fresh_rows']}, {s['cold_ms']:.3f} ms; warm "
+          f"{s['warm_bytes']} B, {s['warm_ms']:.3f} ms, bitwise "
+          f"{s['warm_bitwise']}; int8 {s['int8_bytes']} B, agreement "
+          f"{s['int8_agreement']:.3f}; MicroBatcher: 8 single-node requests "
+          f"in {s['batch_dispatches']} dispatch(es); {launches} GCNII "
+          "launches")
+    if bill != SERVE_GLASU_BILL or s["warm_bytes"] != 0 \
+            or not s["warm_bitwise"] \
+            or s["int8_bytes"] != SERVE_WIRE_BYTES["int8"] \
+            or s["batch_preds"] != s["cold_preds"][:8].tolist() \
+            or not 1 <= s["batch_dispatches"] <= 8:
+        raise AssertionError(f"examples: serve_glasu {s}")
+    out["serve_glasu_launches"] = launches
+    for window in (0, 8):
+        _examples_decode(torch, np, mods, serve_decode, window)
+    _zero_counts(graph_agg)                              # ---- counted run
+    t = transformer_glasu.main([])
+    _only_launched(graph_agg, "transformer_glasu")
+    print(f"examples: transformer_glasu (glasu-tp-20m, GlasuSplit(4, 2, 2), "
+          f"{t['n_params']} parameters, fp32 AdamW, 30 calls at B 4 x S 128)"
+          f": steps {t['steps']} (want {TFM_GLASU_STEPS}), losses "
+          f"{[round(x, 4) for x in t['losses']]}, {t['seconds']:.3f} s")
+    if t["steps"] != TFM_GLASU_STEPS or \
+            not all(math.isfinite(x) for x in t["losses"]):
+        raise AssertionError(f"examples: transformer_glasu {t}")
+    cfg = transformer_glasu.config().with_(optimizer="sgd")
+    tokens, labels = mods["TokenStream"](cfg.vocab, seed=SEED).batch(4, 128)
+    _card_vs_cpu_step(torch, mods, cfg, {"tokens": tokens, "labels": labels},
+                      "examples", "transformer_glasu glasu-tp-20m")
+    return out
+
+
+def _examples_vfl(torch, mods, vfl):
+    """``vfl_graph_training.main([])``: the eight rows on suzhou, 150
+    rounds each. Each row's run is counted; its first GCNII launch (at
+    KERNEL_ATOL) and its first exact-eval launch (all N = 3137 rows, one
+    client for centralized; trained activations, so at KERNEL_ATOL
+    relative to the output's magnitude) are held against the plain
+    version."""
+    graph_agg, ops = mods["graph_agg"], mods["ops"]
+    rows = {}
+    run_row = vfl.run_row
+
+    def counted_row(label, cfg, device=None, data=None):
+        n_nodes = data.n_nodes
+        _zero_counts(graph_agg)                          # ---- counted run
+        with _Capture(ops, "gcnii_layer", limit=1) as first, \
+                _Capture(ops, "gcnii_layer", limit=1,
+                         where=lambda a: a[0].shape[1] >= n_nodes) as ev:
+            res = run_row(label, cfg, device, data)
+        launches = _only_launched(graph_agg, label, "gcnii_layer_cuda")
+        held = [_replay(torch, calls, graph_agg.gcnii_layer_cuda,
+                        graph_agg.gcnii_layer_plain, _gcnii_bound,
+                        scaled=scaled)[0]
+                for calls, scaled in ((first.calls, False),
+                                      (ev.calls, True))]
+        rows[label] = dict(res, launches=launches, held=held,
+                           clients=first.calls[0][0][0].shape[0])
+        return res
+
+    with _swapped(vfl, "run_row", counted_row):
+        vfl.main([])
+    for label, r in rows.items():
+        print(f"examples: vfl {label}: acc {r['test_acc']:.4f}, comm "
+              f"{r['comm_bytes']} B (exactly {VFL_COMM_BYTES[label]}), "
+              f"{r['wall_seconds']:.3f} s, {r['launches']} GCNII launches "
+              f"(M = {r['clients']}); held to the plain version: " +
+              ", ".join(f"{h['n_src']}->{h['n_dst']} err "
+                        f"{h['max_abs_err']:.2e} (|plain| <= "
+                        f"{h['plain_max_abs']:.3g}) {h['ms']:.4f} ms"
+                        for h in r["held"]))
+    bad = [label for label, r in rows.items()
+           if r["comm_bytes"] != VFL_COMM_BYTES[label]
+           or r["rounds_run"] != VFL_ROUNDS or len(r["held"]) != 2]
+    glasu_rows = [label for label in rows if label.startswith("GLASU")]
+    bad += [label for label in glasu_rows + ["centralized (M=1)"]
+            if rows[label]["test_acc"] < VFL_MIN_ACC]
+    cent = rows["centralized (M=1)"]["test_acc"]
+    q4 = rows["GLASU K=2 Q=4"]["test_acc"]
+    stand = rows["standalone (no comm)"]["test_acc"]
+    if list(rows) != list(VFL_COMM_BYTES) or bad or \
+            abs(q4 - cent) > VFL_Q4_SLACK or \
+            any(stand >= rows[label]["test_acc"] for label in glasu_rows):
+        raise AssertionError(f"examples: vfl rows failing {bad}; GLASU Q=4 "
+                             f"{q4:.4f} vs centralized {cent:.4f}, "
+                             f"standalone {stand:.4f}")
+    print(f"examples: vfl GLASU Q=4 {q4:.4f} vs centralized {cent:.4f} "
+          f"(within {VFL_Q4_SLACK}); standalone {stand:.4f} below every "
+          "GLASU row")
+    return dict(vfl_launches={label: r["launches"]
+                              for label, r in rows.items()},
+                vfl_held={label: r["held"] for label, r in rows.items()})
+
+
+def _examples_decode(torch, np, mods, serve_decode, window):
+    """``serve_decode.main`` (window 0: full caches; else ``--window``):
+    (4, 32) tokens and no kernel launch; then, in fp32 from the example's
+    own parameters (``init_lm`` from a generator seeded 0 on the card),
+    the prompt and the card's tokens fed step by step through
+    ``lm_decode_logits`` on the card and on the CPU: every step's logits
+    at GRAD_TOL, and the card's greedy tokens its argmax."""
+    tfm = mods["tfm"]
+    argv = ["--window", str(window)] if window else []
+    _zero_counts(mods["graph_agg"])                      # ---- counted run
+    d = serve_decode.main(argv)
+    _only_launched(mods["graph_agg"], f"serve_decode {d['cache']}")
+    cfg = serve_decode.config(window)
+    params = tfm.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         "cuda")
+    feed = np.concatenate([d["prompt"], d["tokens"][:, :-1]], axis=1)
+    logits = {}
+    with torch.inference_mode():
+        for dev, p in (("cuda", params),
+                       ("cpu", mods["tree_map"](lambda t: t.cpu(), params))):
+            caches = tfm.init_caches(cfg, feed.shape[0], feed.shape[1] + 1,
+                                     device=dev)
+            seq = torch.from_numpy(feed).to(dev)
+            rows = []
+            for i in range(feed.shape[1]):
+                lg, caches = tfm.lm_decode_logits(p, caches, cfg,
+                                                  seq[:, i:i + 1])
+                rows.append(lg.float().cpu())
+            logits[dev] = torch.cat(rows, dim=1)
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    n_prompt = d["prompt"].shape[1]
+    greedy = logits["cuda"][:, n_prompt - 1:].argmax(-1).numpy()
+    print(f"examples: serve_decode cache {d['cache']}: {d['tokens'].shape} "
+          f"tokens, {d['tok_s']:.1f} tok/s; fp32 card vs CPU over "
+          f"{feed.shape[1]} steps of the card's tokens: logits max abs diff "
+          f"{err:.3e} (rtol = atol = 1e-4), greedy tokens "
+          f"{'equal' if (greedy == d['tokens']).all() else 'DIFFERENT'}")
+    if d["tokens"].shape != (4, 32) or \
+            not torch.allclose(logits["cuda"], logits["cpu"], **GRAD_TOL) \
+            or not (greedy == d["tokens"]).all():
+        raise AssertionError(f"examples: serve_decode {d['cache']}: tokens "
+                             f"{d['tokens'].shape}, logits diff {err:.3e}")
+
+
+def phase_ring_decode(torch, mods, full_cache_ms):
+    """SmolLM-360M at its published widths with a RING_WINDOW-slot sliding
+    window (bf16, B 4): DECODE_STEPS greedy ring-cache steps at positions
+    PREFILL_S.. through ``lm_decode_logits``, finite logits and no kernel
+    launch, the median ms a step beside the serve phase's full-cache
+    ``full_cache_ms``."""
+    tfm, graph_agg = mods["tfm"], mods["graph_agg"]
+    cfg = smollm_config(sliding_window=RING_WINDOW)
+    params = tfm.init_lm(torch.Generator(device="cuda").manual_seed(SEED),
+                         cfg, "cuda")
+    caches = tfm.init_caches(cfg, PREFILL_B, DECODE_DEPTH,
+                             prefill_len=PREFILL_S, device="cuda")
+    if caches["blocks"].k.shape[2] != RING_WINDOW:
+        raise AssertionError(f"ring caches hold {caches['blocks'].k.shape}")
+    toks, _ = mods["TokenStream"](cfg.vocab, seed=SEED).batch(PREFILL_B, 1)
+    tok, step_ms, finite = toks.to("cuda"), [], True
+    with torch.inference_mode():
+        _zero_counts(graph_agg)                          # ---- counted run
+        for _ in range(DECODE_STEPS):
+            (logits, caches), ms = _host_ms(
+                torch, lambda: tfm.lm_decode_logits(params, caches, cfg, tok))
+            step_ms.append(ms)
+            finite = finite and bool(torch.isfinite(logits.float()).all())
+            tok = logits.argmax(-1).to(torch.int32)
+        _only_launched(graph_agg, "serve_decode at full width")
+    pos = caches["blocks"].pos
+    med = statistics.median(step_ms)
+    print(f"examples: serve_decode at full width (SmolLM-360M, bf16, B "
+          f"{PREFILL_B}, ring of {RING_WINDOW} slots): {DECODE_STEPS} steps at"
+          f" positions {PREFILL_S}..{PREFILL_S + DECODE_STEPS - 1}, logits "
+          f"{'finite' if finite else 'NOT FINITE'}, median {med:.3f} ms a "
+          f"step (the serve phase's full {DECODE_DEPTH}-deep cache: "
+          f"{full_cache_ms:.3f} ms)")
+    if not finite or not bool((pos == PREFILL_S + DECODE_STEPS).all()):
+        raise AssertionError(f"ring decode: finite {finite}, positions "
+                             f"{pos.tolist()}")
+    del params, caches
+    torch.cuda.empty_cache()
+    return med
+
+
+def _replay(torch, captured, cuda_fn, plain_fn, bound_fn, scaled=False):
     """Per-launch numbers of a kernel on exactly the inputs the main path
-    gave it: max abs error, device ms, host-inclusive ms, plain ms, bound."""
+    gave it: max abs error, device ms, host-inclusive ms, plain ms, bound.
+    The error is held to KERNEL_ATOL; ``scaled``: to KERNEL_ATOL times the
+    plain output's largest magnitude where that exceeds 1 (trained
+    activations, whose fp32 sums in another order differ by ulps of
+    their own size)."""
     rows = []
     for i, (args, kw) in enumerate(captured):
         got = cuda_fn(*args, **kw)
         torch.cuda.synchronize()
-        err = float((got - plain_fn(*args, **kw)).abs().max())
-        if err > KERNEL_ATOL or not torch.isfinite(got).all():
+        want = plain_fn(*args, **kw)
+        err = float((got - want).abs().max())
+        peak = float(want.abs().max())
+        limit = KERNEL_ATOL * (max(1.0, peak) if scaled else 1.0)
+        if err > limit or not torch.isfinite(got).all():
             raise AssertionError(f"main-path launch {i}: max abs err "
-                                 f"{err:.3e} > {KERNEL_ATOL:.0e}")
+                                 f"{err:.3e} > {limit:.3e} (plain output's "
+                                 f"largest magnitude {peak:.3e})")
         kernel = lambda: cuda_fn(*args, **kw)
         bound_ms, bound_by, _, _ = bound_fn(torch, *args)
         rows.append(dict(n_src=args[0].shape[1], n_dst=got.shape[1],
-                         max_abs_err=err, ms=_time_ms(torch, kernel),
+                         max_abs_err=err, plain_max_abs=peak,
+                         ms=_time_ms(torch, kernel),
                          launch_ms=_time_ms(torch, kernel, preload=False),
                          plain_ms=_time_ms(torch, lambda: plain_fn(*args,
                                                                    **kw)),
@@ -3537,7 +3829,9 @@ def phase_result(torch, graph_agg, trained, served, powerlaw, n_layers, lm,
     million-node serving path gave it (the launches of that counted run);
     the flash kernel on the first layer's input of the counted dense
     SmolLM-360M prefill, and at the 32k shape. ``backends`` adds the
-    GCNII launches of the simulation and sharded phases' counted runs."""
+    GCNII launches of the simulation and sharded phases' counted runs and,
+    under ``examples``, the examples phase's (with the launches it held to
+    the plain version on the vfl rows' new shapes)."""
     scope = (f"sum over the {n_layers} launches of one joint inference of a "
              "training round of {preset} (M=3, d=64, F+1=4, n_src/n_dst "
              "512/512, 512/512, 512/64, 64/16); ms, plain_ms: device time; "
@@ -3769,6 +4063,7 @@ def main() -> int:
         raise AssertionError("the sharded phases closed every backend, "
                              "trainer and session, yet a default process "
                              "group is still alive")
+    examples = _timed("examples", phase_examples, torch, np, mods)
     powerlaw = _timed("powerlaw", phase_powerlaw, torch, np, mods)
     split = smollm_config(glasu=GlasuSplit(n_clients=5, sync_every=2,
                                            local_steps=1))
@@ -3776,6 +4071,8 @@ def main() -> int:
                           smollm_config(), 32),
           "glasu": _timed("serve", phase_serve_lm, torch, mods, "glasu",
                           split, 16)}
+    _timed("examples", phase_ring_decode, torch, mods,
+           lm["dense"]["decode_ms"])
     lm["train"] = _timed("train_lm", phase_train_lm, torch, mods)
     lm["families"] = _timed("families", phase_families, torch, mods)
     from repro_torch.launch import dryrun, op_cost
@@ -3787,7 +4084,8 @@ def main() -> int:
            flash_cases, dict(
                sim_launches_per_round=sim["launches_per_round"],
                sharded_launches=sharded["launches"],
-               sharded_serve_launches=sharded["serve_launches"]))
+               sharded_serve_launches=sharded["serve_launches"],
+               examples=examples))
     print(f"time: main() ran {time.perf_counter() - t_main:.1f} s (host "
           "clock, from its start, the build included); by phase " +
           ", ".join(f"{k} {v:.1f}" for k, v in PHASE_S.items()) + " s")

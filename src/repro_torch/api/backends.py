@@ -23,7 +23,7 @@ every round.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Optional, Protocol, runtime_checkable
 
 import torch
 
@@ -62,6 +62,48 @@ class StepResult:
     # fault-tolerant steps only: delivered-only bytes of EACH of the K
     # rounds; ``comm_bytes_round`` still carries the fault-free price
     comm_bytes_rounds: Optional[tuple] = None
+
+
+@runtime_checkable
+class Backend(Protocol):
+    """Execution substrate for one GLASU round (Alg 1 body).
+
+    ``supports_faults`` is the explicit fault-capability contract: a
+    backend that can run deadline rounds (accepting ``faults=`` on
+    run_round/run_step) declares it ``True``. The Trainer checks the flag
+    at config time, so a fault-tolerant experiment on a backend without it
+    fails before the first round instead of silently training fault-free
+    (the three built-in backends support faults; the flag exists for
+    backends written against the run_round-only protocol).
+    """
+
+    name: str
+    supports_faults: bool
+
+    def bind(self, model_cfg: GlasuConfig, optimizer: opt_lib.Optimizer,
+             sampler: GlasuSampler) -> None:
+        """Specialize to a model/optimizer/sampler before the first round."""
+        ...
+
+    def run_round(self, params, opt_state, batch, generator=None,
+                  faults=None) -> RoundResult:
+        """One round on a ``SampledBatch`` on the device; ``generator``
+        draws the §3.6 hooks' masks and noise. ``faults`` (a
+        ``fed.faults.RoundPlan``) runs the fault-tolerant exchange and
+        needs a fault-tolerant bind (``cfg.fault_tolerant``)."""
+        ...
+
+    def run_step(self, params, opt_state, batches, generators=None,
+                 faults=None) -> StepResult:
+        """K rounds in one call; ``batches`` and ``generators`` carry a
+        leading round axis. ``faults``: K ``RoundPlan``s (fault-tolerant
+        binds only)."""
+        ...
+
+    def joint_logits(self, params, batch, generator=None):
+        """JointInference logits (M, S, C) — the cross-backend parity
+        probe."""
+        ...
 
 
 def run_step_sequential(backend, params, opt_state, batches, generators=None,

@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 
 from ..comm.compression import CompressionConfig
 from ..core.glasu import GlasuConfig
-from ..core.train import TrainConfig
+from ..core.train import TrainConfig, legacy_optimizer_name
 from ..fed.faults import FaultConfig
 from ..graph.sampler import SamplerConfig
 from ..optim import optimizers as opt_lib
@@ -301,3 +301,43 @@ class ExperimentConfig:
         if d.get("agg_layers") is not None:
             d["agg_layers"] = tuple(d["agg_layers"])
         return cls(**d)
+
+    @classmethod
+    def from_legacy(cls, model_cfg: GlasuConfig, sampler_cfg: SamplerConfig,
+                    train_cfg: TrainConfig, target_acc: Optional[float] = None,
+                    dataset: str = "custom") -> "ExperimentConfig":
+        """Adapt the three-config surface of ``core.train.train_glasu``:
+        the schedules compared as sorted sets, ``method="standalone"`` when
+        the model aggregates nowhere, and any optimizer name other than
+        sgd / momentum / adam read as adam."""
+        agg_layers = tuple(sorted(set(model_cfg.agg_layers)))
+        sampler_agg = tuple(sorted(set(sampler_cfg.agg_layers)))
+        want = agg_layers if agg_layers else (model_cfg.n_layers - 1,)
+        if sampler_agg != want:
+            # standalone included: the sampler may only share the mini-batch
+            raise ValueError(
+                f"mismatched agg_layers: model {tuple(model_cfg.agg_layers)} "
+                f"implies sampler {want}, got {tuple(sampler_cfg.agg_layers)}")
+        if model_cfg.n_layers != sampler_cfg.n_layers:
+            raise ValueError(
+                f"mismatched n_layers: model {model_cfg.n_layers} vs sampler "
+                f"{sampler_cfg.n_layers}")
+        return cls(
+            name=f"legacy-{dataset}", dataset=dataset,
+            method="standalone" if not agg_layers else "glasu",
+            n_clients=model_cfg.n_clients, n_layers=model_cfg.n_layers,
+            hidden=model_cfg.hidden, backbone=model_cfg.backbone,
+            agg=model_cfg.agg, agg_layers=agg_layers or None,
+            n_local_steps=model_cfg.n_local_steps,
+            gcnii_alpha=model_cfg.gcnii_alpha,
+            gcnii_beta=model_cfg.gcnii_beta, gat_heads=model_cfg.gat_heads,
+            dp_sigma=model_cfg.dp_sigma, secure_agg=model_cfg.secure_agg,
+            labels_at_client=model_cfg.labels_at_client,
+            use_pallas=model_cfg.use_pallas,
+            batch_size=sampler_cfg.batch_size, fanout=sampler_cfg.fanout,
+            size_cap=sampler_cfg.size_cap, table_cap=sampler_cfg.table_cap,
+            rounds=train_cfg.rounds, lr=train_cfg.lr,
+            optimizer=legacy_optimizer_name(train_cfg.optimizer),
+            eval_every=train_cfg.eval_every,
+            eval_table_cap=train_cfg.eval_table_cap, seed=train_cfg.seed,
+            eval_mode=train_cfg.eval_mode, target_acc=target_acc)

@@ -1,10 +1,12 @@
-"""Training result types and the evaluation tables.
+"""Training result types, the legacy training surface, and the
+evaluation tables.
 
-Counterpart of ``repro.core.train``: ``TrainConfig``/``TrainResult`` (the
-loop itself is ``repro_torch.api.trainer.Trainer``) and the tables shared by
-exact full-graph inference and serving. The tables are host numpy, bitwise
-equal to the reference for the same dataset and seed, including the order
-in which the table generator's draws are consumed.
+Counterpart of ``repro.core.train``: ``TrainConfig``/``TrainResult``, the
+three-config ``train_glasu`` and its ``make_optimizer`` (a shim over
+``repro_torch.api.trainer.Trainer``, which runs the loop), and the tables
+shared by exact full-graph inference and serving. The tables are host
+numpy, bitwise equal to the reference for the same dataset and seed,
+including the order in which the table generator's draws are consumed.
 """
 from __future__ import annotations
 
@@ -15,6 +17,9 @@ import numpy as np
 
 from ..graph.feature_store import is_streamed
 from ..graph.graph import VFLDataset
+from ..graph.sampler import SamplerConfig
+from ..optim import optimizers as opt_lib
+from .glasu import GlasuConfig
 
 
 @dataclass
@@ -70,6 +75,39 @@ def _eval_tables(data: VFLDataset, cap: int, seed: int):
         x[:, :c.feat_dim] = c.features
         feats.append(x)
     return np.stack(feats), nbr_idx, nbr_mask
+
+
+def legacy_optimizer_name(name: str) -> str:
+    """The optimizer a legacy ``TrainConfig.optimizer`` ran: itself when
+    it is sgd / momentum / adam (the only names the legacy driver knew),
+    adam for any other name."""
+    return name if name in ("sgd", "momentum", "adam") else "adam"
+
+
+def make_optimizer(cfg: TrainConfig) -> opt_lib.Optimizer:
+    """The legacy driver's optimizer: ``optim.optimizers.make_optimizer``
+    after the silent fall-back to adam."""
+    return opt_lib.make_optimizer(legacy_optimizer_name(cfg.optimizer),
+                                  cfg.lr)
+
+
+def train_glasu(data: VFLDataset, model_cfg: GlasuConfig,
+                sampler_cfg: SamplerConfig, train_cfg: TrainConfig,
+                target_acc: Optional[float] = None,
+                device=None) -> TrainResult:
+    """Run ``train_cfg.rounds`` rounds of Alg 1, optionally stopping at a
+    target accuracy (Table 4), on ``device`` (default CUDA).
+
+    Adapts the three legacy configs into one ``ExperimentConfig``
+    (``ExperimentConfig.from_legacy``) and runs ``api.Trainer`` on
+    ``data``. New code builds an ``ExperimentConfig``, or starts from
+    ``api.presets``, directly.
+    """
+    from ..api import ExperimentConfig, Trainer
+    cfg = ExperimentConfig.from_legacy(model_cfg, sampler_cfg, train_cfg,
+                                       target_acc=target_acc,
+                                       dataset=data.name)
+    return Trainer(cfg, data=data, device=device).run()
 
 
 def make_centralized_dataset(data: VFLDataset) -> VFLDataset:

@@ -525,6 +525,16 @@ def lm_decode_step(params, caches, cfg: ArchConfig, token, enc_out=None):
     """One greedy decode step. token: (B, 1) int -> (next_token (B, 1)
     int32, caches); the encoder-decoder also takes the encoder output
     ``enc_out`` (B, S_src, D). KV and MLA caches are written in place."""
+    logits, caches = lm_decode_logits(params, caches, cfg, token, enc_out)
+    # the vocab gathered first on a mesh (DTensor's argmax over a split
+    # dim fails on a 3-D mesh)
+    return (torch.argmax(whole_dim(logits, -1), dim=-1).to(torch.int32),
+            caches)
+
+
+def lm_decode_logits(params, caches, cfg: ArchConfig, token, enc_out=None):
+    """``lm_decode_step`` before its argmax: token (B, 1) int -> (logits
+    (B, 1, vocab), caches)."""
     x = _embed(params["emb"], token)
     ring = _uses_ring(cfg, caches)
     caches = dict(caches)
@@ -572,11 +582,7 @@ def lm_decode_step(params, caches, cfg: ArchConfig, token, enc_out=None):
                                             caches["blocks"], x,
                                             dense(cfg.moe))
     x = rmsnorm(params["final_norm"], x)
-    logits = x @ wcol(params["unemb"])
-    # the vocab gathered first on a mesh (DTensor's argmax over a split
-    # dim fails on a 3-D mesh)
-    return (torch.argmax(whole_dim(logits, -1), dim=-1).to(torch.int32),
-            caches)
+    return x @ wcol(params["unemb"]), caches
 
 
 # =====================================================================

@@ -9,6 +9,7 @@
     and without the rest of the repository beside it.
 """
 import ast
+import importlib
 import json
 import pathlib
 import shutil
@@ -110,6 +111,18 @@ def test_default_device_is_cuda_and_raises_without_it():
         init(torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="is_available"):
         train.main(["--steps", "1"])
+
+
+@pytest.mark.parametrize("name", ["quickstart", "vfl_graph_training",
+                                  "serve_glasu", "serve_decode",
+                                  "transformer_glasu"])
+def test_example_entry_points_need_cuda_by_default(name):
+    """``python -m repro_torch.examples.<name>`` runs on the card unless
+    given ``--device cpu``; without CUDA it raises before any work."""
+    _no_cuda()
+    example = importlib.import_module(f"repro_torch.examples.{name}")
+    with pytest.raises(RuntimeError, match="is_available"):
+        example.main([])
 
 
 def test_unported_training_options_raise(monkeypatch):
