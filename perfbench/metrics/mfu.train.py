@@ -1,0 +1,7 @@
+"""Percent of the float32 peak: the FLOPs of the window's rounds and
+evaluations over the window."""
+from perfbench import readers
+
+
+def read(run):
+    return readers.mfu(run)
