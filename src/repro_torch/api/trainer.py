@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import spans
 from ..core import checkpoint, glasu
 from ..core.train import TrainResult, _eval_tables, make_centralized_dataset
 from ..device import resolve_device
@@ -152,12 +153,13 @@ class EvalHook(Hook):
 
     def _append_entry(self, trainer):
         cfg, st, data = trainer.cfg, trainer.state, trainer.data
-        logits = self.eval_fn(st.params)
-        mode = cfg.resolved_eval_mode
-        val = float(glasu.accuracy_from_logits(
-            logits, data.full.labels, data.full.val_idx, mode))
-        test = float(glasu.accuracy_from_logits(
-            logits, data.full.labels, data.full.test_idx, mode))
+        with spans.span("train.eval", round=st.round):
+            logits = self.eval_fn(st.params)
+            mode = cfg.resolved_eval_mode
+            val = float(glasu.accuracy_from_logits(
+                logits, data.full.labels, data.full.val_idx, mode))
+            test = float(glasu.accuracy_from_logits(
+                logits, data.full.labels, data.full.test_idx, mode))
         # the only host sync the loss reporting pays is here, at eval cadence
         loss = (float(st.last_losses[-1]) if st.last_losses is not None
                 else float("nan"))
@@ -477,30 +479,33 @@ class Trainer:
         try:
             t = st.round
             for _ in schedule:
-                step = prefetch.get()
-                # the step reads its own device copy: recycle the oldest
-                # host generation now (once its copy is done), so the
-                # worker samples ahead while this thread dispatches
-                prefetch.retire(step)
+                with spans.span("train.fetch"):
+                    step = prefetch.get()
+                    # the step reads its own device copy: recycle the oldest
+                    # host generation now (once its copy is done), so the
+                    # worker samples ahead while this thread dispatches
+                    prefetch.retire(step)
                 k = step.rounds
                 plans = self.fault_sched.draw_step(k) \
                     if self.fault_sched is not None else None
-                out = self._run_step(st.params, st.opt_state, step.data,
-                                     self._generators(t, k), plans)
+                with spans.span("train.step", rounds=k):
+                    out = self._run_step(st.params, st.opt_state, step.data,
+                                         self._generators(t, k), plans)
                 st.params, st.opt_state = out.params, out.opt_state
                 st.sampler_rng_state = step.rng_state_after
-                for i in range(k):
-                    st.round = t + i + 1
-                    # a device row: nothing blocks until EvalHook reads it
-                    st.last_losses = out.losses[i]
-                    metrics = {"round": st.round, "losses": out.losses[i],
-                               "comm_bytes_round":
-                                   out.comm_bytes_rounds[i]
-                                   if out.comm_bytes_rounds is not None
-                                   else out.comm_bytes_round,
-                               "fault_plan": plans[i] if plans else None}
-                    for h in self.hooks:
-                        h.on_round_end(self, metrics)
+                with spans.span("train.hooks"):
+                    for i in range(k):
+                        st.round = t + i + 1
+                        # a device row: nothing blocks until EvalHook reads it
+                        st.last_losses = out.losses[i]
+                        metrics = {"round": st.round, "losses": out.losses[i],
+                                   "comm_bytes_round":
+                                       out.comm_bytes_rounds[i]
+                                       if out.comm_bytes_rounds is not None
+                                       else out.comm_bytes_round,
+                                   "fault_plan": plans[i] if plans else None}
+                        for h in self.hooks:
+                            h.on_round_end(self, metrics)
                 t += k
                 if st.should_stop:
                     break

@@ -49,6 +49,7 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence
 
 import torch
 
+from .. import spans
 from ..comm import compression
 from ..comm.compression import CompressionConfig, Compressor
 from ..device import resolve_device
@@ -658,24 +659,32 @@ def local_update_steps(params, opt_state, batch: SampledBatch, stale,
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         p = tree_unflatten(params, leaves)
         with torch.enable_grad():
-            if cfg.labels_at_client is None:
-                per = client_loss(p, batch, stale, cfg, clients,
-                                  fault_w=fault_w, fault_denom=fault_denom)
-            else:
-                h_l = _client_trunk(cfg, p, batch, stale, return_hidden=True)
-                own = _nll(_linear(p["cls"], h_l), batch.labels)
-                surrogate = torch.sum(g_hl.detach()[None] * h_l, dim=(1, 2))
-                # owner optimizes its real loss (incl. classifier); others
-                # the broadcast-gradient surrogate (no classifier grads)
-                is_owner = torch.arange(cfg.n_clients, device=h_l.device) \
-                    == cfg.labels_at_client
-                per = torch.where(is_owner, own, surrogate)
-            grads = torch.autograd.grad(torch.sum(per), leaves,
-                                        allow_unused=True,
-                                        materialize_grads=True)
-        updates, opt_state = optimizer.update(
-            tree_unflatten(params, grads), opt_state, params)
-        params = opt_lib.apply_updates(params, updates)
+            with spans.span("round.local_forward"):
+                if cfg.labels_at_client is None:
+                    per = client_loss(p, batch, stale, cfg, clients,
+                                      fault_w=fault_w,
+                                      fault_denom=fault_denom)
+                else:
+                    h_l = _client_trunk(cfg, p, batch, stale,
+                                        return_hidden=True)
+                    own = _nll(_linear(p["cls"], h_l), batch.labels)
+                    surrogate = torch.sum(g_hl.detach()[None] * h_l,
+                                          dim=(1, 2))
+                    # owner optimizes its real loss (incl. classifier);
+                    # others the broadcast-gradient surrogate (no
+                    # classifier grads)
+                    is_owner = torch.arange(cfg.n_clients,
+                                            device=h_l.device) \
+                        == cfg.labels_at_client
+                    per = torch.where(is_owner, own, surrogate)
+            with spans.span("round.local_backward"):
+                grads = torch.autograd.grad(torch.sum(per), leaves,
+                                            allow_unused=True,
+                                            materialize_grads=True)
+        with spans.span("round.optimizer"):
+            updates, opt_state = optimizer.update(
+                tree_unflatten(params, grads), opt_state, params)
+            params = opt_lib.apply_updates(params, updates)
         per = per.detach()
         losses.append(torch.mean(per if mesh is None else mesh.gather(per)))
     return params, opt_state, torch.stack(losses)
@@ -697,9 +706,10 @@ def _round_body(cfg: GlasuConfig, optimizer: opt_lib.Optimizer,
             "(Alg 6 owner gradient); use the vmapped backend")
     fault_w = fault_denom = None
     if cfg.agg_layers:
-        _, stale, new_comp, new_cache, denom = _joint_inference_engine(
-            params, batch, cfg, comp, generator, comp_state, fault_state,
-            faults, mesh=mesh)
+        with spans.span("round.joint_inference"):
+            _, stale, new_comp, new_cache, denom = _joint_inference_engine(
+                params, batch, cfg, comp, generator, comp_state,
+                fault_state, faults, mesh=mesh)
         if comp is not None:
             comp_state = new_comp
         if faults is not None:

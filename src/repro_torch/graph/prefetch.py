@@ -33,6 +33,7 @@ from typing import List, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from .. import spans
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from .sampler import GlasuSampler, SampledBatch
 
@@ -115,9 +116,10 @@ class PrefetchSampler:
             self._free.put(g)
         self._out: "queue.Queue" = queue.Queue()
         self._inflight: List[tuple] = []     # (gen, rounds, copy events) FIFO
-        self._copies: List[tuple] = []       # (rounds, events) of retired
         self._sample_s = self._wait_s = 0.0
         self._rounds = 0
+        self._copied_rounds = 0              # of the retired generations
+        self._copy_ms = 0.0                  # their copies' device ms
         self._stop = threading.Event()
         self._thread = threading.Thread(
             target=self._work, name="glasu-prefetch", daemon=True)
@@ -149,14 +151,14 @@ class PrefetchSampler:
                     return
                 view = unstack_round(self._bufs[gen], slice(0, k))
                 dst = [x.numpy() for x in tree_leaves(tuple(view))]
-                t0 = time.perf_counter()
-                for i in range(k):
-                    if self._stop.is_set():  # close() mid-fill: exit promptly
-                        return
-                    b = self.sampler.sample_round()
-                    for d, src in zip(dst, tree_leaves(tuple(b))):
-                        np.copyto(d[i], src)
-                self._sample_s += time.perf_counter() - t0
+                with spans.timed("prefetch.sample", rounds=k) as rec:
+                    for i in range(k):
+                        if self._stop.is_set():  # close() mid-fill: exit
+                            return                   # promptly
+                        b = self.sampler.sample_round()
+                        for d, src in zip(dst, tree_leaves(tuple(b))):
+                            np.copyto(d[i], src)
+                self._sample_s += rec.duration_ns / 1e9
                 state = copy.deepcopy(self.sampler.rng.bit_generator.state)
                 self._out.put((view, k, gen, state))
         except BaseException as e:          # propagate to the consumer
@@ -193,7 +195,8 @@ class PrefetchSampler:
             gen, k, events = self._inflight.pop(0)
             if events:
                 events[1].synchronize()
-                self._copies.append((k, events))
+                self._copy_ms += events[0].elapsed_time(events[1])
+                self._copied_rounds += k
             self._free.put(gen)
 
     def stats(self) -> dict:
@@ -201,11 +204,10 @@ class PrefetchSampler:
         ms in ``get()`` and the copies' device ms (CUDA, over the retired
         generations)."""
         r = max(self._rounds, 1)
-        copied = sum(k for k, _ in self._copies)
-        copy_ms = sum(a.elapsed_time(b) for _, (a, b) in self._copies)
+        copied = self._copied_rounds
         return dict(rounds=self._rounds, sample_ms=self._sample_s * 1e3 / r,
                     wait_ms=self._wait_s * 1e3 / r,
-                    copy_ms=copy_ms / copied if self._cuda and copied
+                    copy_ms=self._copy_ms / copied if self._cuda and copied
                     else None)
 
     def close(self) -> None:

@@ -17,6 +17,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from .. import spans
 from .metrics import ServeAnswer
 
 
@@ -76,28 +77,34 @@ class MicroBatcher:
                 continue
             self.batches += 1
             self.coalesced += len(batch) - 1
-            all_nodes = np.concatenate([n for n, _ in batch])
-            try:
-                ans = self.session.answer(all_nodes)
-            except Exception as e:           # noqa: BLE001 — fan the
-                for _, fut in batch:         # failure out to every waiter
-                    fut.set_exception(e)
-                continue
-            off = 0
-            for nodes, fut in batch:
-                sl = slice(off, off + len(nodes))
-                off += len(nodes)
-                fut.set_result(ServeAnswer(
-                    nodes=nodes, logits=ans.logits[sl],
-                    per_client=ans.per_client[:, sl, :],
-                    preds=ans.preds[sl], fresh_rows=ans.fresh_rows,
-                    upload_bytes=ans.upload_bytes,
-                    broadcast_bytes=ans.broadcast_bytes,
-                    index_bytes=ans.index_bytes,
-                    cache_hits=ans.cache_hits,
-                    cache_misses=ans.cache_misses,
-                    latency_s=ans.latency_s, cold=ans.cold,
-                    params_version=ans.params_version, log=ans.log))
+            with spans.span("batcher.dispatch"):
+                self._dispatch(batch)
+
+    def _dispatch(self, batch):
+        """One ``session.answer`` for the taken requests, split back to
+        their futures (the fan-out)."""
+        all_nodes = np.concatenate([n for n, _ in batch])
+        try:
+            ans = self.session.answer(all_nodes)
+        except Exception as e:           # noqa: BLE001 — fan the
+            for _, fut in batch:         # failure out to every waiter
+                fut.set_exception(e)
+            return
+        off = 0
+        for nodes, fut in batch:
+            sl = slice(off, off + len(nodes))
+            off += len(nodes)
+            fut.set_result(ServeAnswer(
+                nodes=nodes, logits=ans.logits[sl],
+                per_client=ans.per_client[:, sl, :],
+                preds=ans.preds[sl], fresh_rows=ans.fresh_rows,
+                upload_bytes=ans.upload_bytes,
+                broadcast_bytes=ans.broadcast_bytes,
+                index_bytes=ans.index_bytes,
+                cache_hits=ans.cache_hits,
+                cache_misses=ans.cache_misses,
+                latency_s=ans.latency_s, cold=ans.cold,
+                params_version=ans.params_version, log=ans.log))
 
     def close(self):
         with self._cv:

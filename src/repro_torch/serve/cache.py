@@ -21,6 +21,8 @@ from typing import Tuple
 
 import numpy as np
 
+from .. import spans
+
 
 class HotNodeCache:
     def __init__(self, capacity: int, max_staleness: int = 0):
@@ -46,32 +48,33 @@ class HotNodeCache:
         (after a transpose to (M, n, h_agg) by the caller).
         """
         n = len(nodes)
-        hit = np.zeros(n, dtype=np.float32)
-        rows = np.zeros((n,) + tuple(row_shape), dtype=np.float32)
-        if self.capacity == 0:
-            self.misses += int((np.asarray(nodes) >= 0).sum())
+        with spans.span("serve.cache", layer=layer, n=n):
+            hit = np.zeros(n, dtype=np.float32)
+            rows = np.zeros((n,) + tuple(row_shape), dtype=np.float32)
+            if self.capacity == 0:
+                self.misses += int((np.asarray(nodes) >= 0).sum())
+                return hit, rows
+            for i, node in enumerate(np.asarray(nodes).tolist()):
+                if node < 0:
+                    continue
+                key = (int(node), int(layer))
+                entry = self._store.get(key)
+                if entry is None:
+                    self.misses += 1
+                    continue
+                ver, row = entry
+                if version - ver > self.max_staleness or ver > version:
+                    # too stale (or from a future version after a
+                    # rollback): unusable now and forever — drop it
+                    del self._store[key]
+                    self.evictions += 1
+                    self.misses += 1
+                    continue
+                self._store.move_to_end(key)
+                hit[i] = 1.0
+                rows[i] = row
+                self.hits += 1
             return hit, rows
-        for i, node in enumerate(np.asarray(nodes).tolist()):
-            if node < 0:
-                continue
-            key = (int(node), int(layer))
-            entry = self._store.get(key)
-            if entry is None:
-                self.misses += 1
-                continue
-            ver, row = entry
-            if version - ver > self.max_staleness or ver > version:
-                # too stale (or from a future version after a rollback):
-                # unusable now and forever — drop it
-                del self._store[key]
-                self.evictions += 1
-                self.misses += 1
-                continue
-            self._store.move_to_end(key)
-            hit[i] = 1.0
-            rows[i] = row
-            self.hits += 1
-        return hit, rows
 
     def insert(self, layer: int, nodes: np.ndarray, version: int,
                rows: np.ndarray):
@@ -79,16 +82,17 @@ class HotNodeCache:
         aligned with ``nodes``; negative node ids (padding) are skipped."""
         if self.capacity == 0:
             return
-        for i, node in enumerate(np.asarray(nodes).tolist()):
-            if node < 0:
-                continue
-            key = (int(node), int(layer))
-            self._store[key] = (int(version), np.array(rows[i],
-                                                       dtype=np.float32))
-            self._store.move_to_end(key)
-        while len(self._store) > self.capacity:
-            self._store.popitem(last=False)
-            self.evictions += 1
+        with spans.span("serve.cache", layer=layer, n=len(nodes)):
+            for i, node in enumerate(np.asarray(nodes).tolist()):
+                if node < 0:
+                    continue
+                key = (int(node), int(layer))
+                self._store[key] = (int(version),
+                                    np.array(rows[i], dtype=np.float32))
+                self._store.move_to_end(key)
+            while len(self._store) > self.capacity:
+                self._store.popitem(last=False)
+                self.evictions += 1
 
     def drop_older_than(self, version: int):
         """Evict everything below the staleness bound for ``version`` —

@@ -41,16 +41,21 @@ stays at zero bytes. ``ServeConfig(record_log=True)`` attaches to every
 answer the per-query ``MessageLog`` that ``fed.simulation.log_query_traffic``
 replays from the same fresh-row counts, whose total is the answer's
 ``upload_bytes + broadcast_bytes + index_bytes``.
+
+Each dispatch opens a ``serve.dispatch`` span (``spans``), whose duration
+is the answer's ``latency_s``; the probe, plan, staging copies, forward
+enqueue and readbacks inside it open spans of their own
+(``docs/TRACING.md``).
 """
 from __future__ import annotations
 
 import threading
-import time
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import spans
 from ..comm.compression import make_compressor
 from ..core import checkpoint, glasu
 from ..core.train import _eval_neighbor_tables, _eval_tables
@@ -164,7 +169,18 @@ class InferenceSession:
             self._mesh.close()
 
     def _stage(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        with spans.span("serve.stage") as rec:
+            arr = np.ascontiguousarray(arr)
+            rec.attrs["bytes"] = arr.nbytes
+            return torch.from_numpy(arr).to(self.device)
+
+    @staticmethod
+    def _readback(t: torch.Tensor) -> np.ndarray:
+        """``t`` on the host: where the host waits for the device."""
+        with spans.span("serve.readback") as rec:
+            out = t.cpu().numpy()
+            rec.attrs["bytes"] = out.nbytes
+            return out
 
     def _cls(self, rows, real):
         """Per-client classifier heads and their ensemble mean. Pad rows
@@ -338,15 +354,16 @@ class InferenceSession:
         """(M, n, d_pad) level-0 feature block for one plan: resident-array
         slice on small graphs, per-client store row gather when streamed
         (only the plan's rows ever leave disk)."""
-        valid = (src0 >= 0).astype(np.float32)[None, :, None]
-        if not self._streamed:
-            return self._np_feats[:, np.maximum(src0, 0), :] * valid
-        safe = np.maximum(src0, 0)
-        f = np.zeros((self.M, len(src0), self._d_pad), np.float32)
-        for m, c in enumerate(self.data.clients):
-            rows = c.features[safe]
-            f[m, :, :rows.shape[1]] = rows
-        return f * valid
+        with spans.span("serve.gather", rows=len(src0)):
+            valid = (src0 >= 0).astype(np.float32)[None, :, None]
+            if not self._streamed:
+                return self._np_feats[:, np.maximum(src0, 0), :] * valid
+            safe = np.maximum(src0, 0)
+            f = np.zeros((self.M, len(src0), self._d_pad), np.float32)
+            for m, c in enumerate(self.data.clients):
+                rows = c.features[safe]
+                f[m, :, :rows.shape[1]] = rows
+            return f * valid
 
     # ----------------------------------------------------------- serving
     def _wire(self, n: int, d: int) -> int:
@@ -384,7 +401,8 @@ class InferenceSession:
         mb = self.serve.max_batch
         chunks = [nodes[i:i + mb] for i in range(0, len(nodes), mb)]
         answers = []
-        with self._lock, torch.inference_mode():
+        with spans.span("serve.answer", ids=len(nodes)), self._lock, \
+                torch.inference_mode():
             for c in chunks:
                 ans = self._answer_locked(c)
                 self.metrics.record(ans)
@@ -410,7 +428,15 @@ class InferenceSession:
             log=answers[0].log)
 
     def _answer_locked(self, nodes: np.ndarray) -> ServeAnswer:
-        t0 = time.perf_counter()
+        """One dispatch of at most ``max_batch`` ids; its ``latency_s`` is
+        the duration of its ``serve.dispatch`` span."""
+        with spans.timed("serve.dispatch") as rec:
+            ans = self._dispatch(nodes, rec)
+        ans.latency_s = rec.duration_ns / 1e9
+        return ans
+
+    def _dispatch(self, nodes: np.ndarray, rec) -> ServeAnswer:
+        """The dispatch's work; ``rec``, its open span, takes its attrs."""
         m = self.mcfg
         uniq, inv = np.unique(nodes, return_inverse=True)
         b = len(uniq)
@@ -431,30 +457,34 @@ class InferenceSession:
             fresh = {l: 0 for l in m.agg_layers}
             cold = False
         else:
-            plan = self._build_plan(uniq, bucket, top_hit, top_rows)
-            h, aggs = self._fwd(self.params, plan.batch, plan.inject)
+            with spans.span("serve.plan"):
+                plan = self._build_plan(uniq, bucket, top_hit, top_rows)
+            with spans.span("serve.forward"):
+                h, aggs = self._fwd(self.params, plan.batch, plan.inject)
             # host roundtrip on purpose: the warm path assembles the same
             # f32 rows from cache, so both paths feed the classifier
             # bitwise-identical arrays
             rows = np.ascontiguousarray(
-                h.cpu().numpy().transpose(1, 0, 2)).astype(
+                self._readback(h).transpose(1, 0, 2)).astype(
                     np.float32, copy=False)
             for l, (ids_l, comp) in plan.fills.items():
                 if comp.any():
-                    stack = aggs[l].cpu().numpy()      # (M, n, h_agg)
+                    stack = self._readback(aggs[l])    # (M, n, h_agg)
                     self.cache.insert(
                         l, ids_l[comp], self.params_version,
                         np.ascontiguousarray(
                             stack[:, comp, :].transpose(1, 0, 2)))
             fresh = plan.fresh
             cold = True
+        rec.attrs.update(ids=b, bucket=bucket, cold=cold)
 
         real = np.zeros(bucket, dtype=np.float32)
         real[:b] = 1.0
-        per, ens = self._cls(self._stage(rows.transpose(1, 0, 2)),
-                             self._stage(real))
-        per = per.cpu().numpy()[:, :b, :][:, inv, :]
-        ens = ens.cpu().numpy()[:b][inv]
+        rows, real = self._stage(rows.transpose(1, 0, 2)), self._stage(real)
+        with spans.span("serve.forward"):
+            per, ens = self._cls(rows, real)
+        per = self._readback(per)[:, :b, :][:, inv, :]
+        ens = self._readback(ens)[:b][inv]
         up, down, idx = self._price(fresh)
         # hit/miss on the answer are the top-layer probe's outcome — the
         # decision that picks warm vs cold
@@ -469,7 +499,7 @@ class InferenceSession:
             preds=np.argmax(ens, axis=-1).astype(np.int32),
             fresh_rows=dict(fresh), upload_bytes=up, broadcast_bytes=down,
             index_bytes=idx, cache_hits=n_hit, cache_misses=n_miss,
-            latency_s=time.perf_counter() - t0, cold=cold,
+            latency_s=0.0, cold=cold,
             params_version=self.params_version, log=log)
 
     # -------------------------------------------------------- management
