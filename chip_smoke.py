@@ -9,10 +9,10 @@ Phases, each printing its own lines:
             matmuls and cuDNN, so every comparison is in full fp32;
 2. build    compiles every kernel of the serving and training paths from
             the sources in this checkout (``src/repro_torch/kernels/csrc``,
-            five sources, one nvcc each, all started together) and prints
+            six sources, one nvcc each, all started together) and prints
             the build seconds and ptxas' register/shared-memory report;
-            a graph kernel (GAT, GCNII, GCN, CSR) that spills registers
-            fails the run;
+            a graph kernel (GAT, GCNII and its backward, GCN, CSR) that
+            spills registers fails the run;
 3. kernels  holds each kernel (GCNII, GCN, GAT, CSR) against its plain
             PyTorch version on the card at the serving, training and eval
             shapes and on ragged and masked shapes (GCNII, GCN and GAT also
@@ -52,7 +52,8 @@ Phases, each printing its own lines:
             ``cora-gcnii-glasu`` and ``cora-gat-glasu`` at full width, 200
             rounds each (Alg 1, Q = 4, Adam): test accuracy >= 0.90 / 0.95 /
             0.65, comm bytes exactly 164,736,000, >= 20 launches a round of
-            the preset's kernel and none of the others; 4 rounds from the
+            the preset's kernel and none of the others, GCNII's backward
+            kernel once a sub-layer and local step (none for the others); 4 rounds from the
             same parameters and batches on the card and on the CPU; rounds/s
             on the host clock, where a round's time goes, and one profiled
             round's device-busy time and idle share; the batches come
@@ -195,8 +196,10 @@ Phases, each printing its own lines:
             called by the port);
 9. result   the empty-launch floor (one PyTorch op on a one-element
             tensor, timed as the kernels are), each graph kernel's training
-            and cold-answer launches one by one beside their sums, one JSON
-            line listing every kernel, a ``time:`` line (main()'s host
+            and cold-answer launches one by one beside their sums (GCNII's
+            backward kernel on one local step's calls, beside the plain VJP
+            on the card), one JSON line listing every kernel, a ``time:``
+            line (main()'s host
             seconds, the build included, and each phase's), then the final
             JSON line.
 
@@ -333,7 +336,8 @@ FP32_FLOP_PER_S = 67e12
 REPS = 30
 # sources whose kernels must not spill registers (ptxas -v, checked at
 # build): the graph kernels, redesigned for latency
-NO_SPILL_SOURCES = ("gat_layer", "gcnii_layer", "graph_agg", "graph_agg_csr")
+NO_SPILL_SOURCES = ("gat_layer", "gcnii_layer", "gcnii_grad", "graph_agg",
+                    "graph_agg_csr")
 BF16_FLOP_PER_S = 989e12          # dense bf16 on the tensor cores (700 W)
 # flash kernel vs its plain version. fp32: the reference's flash tolerance
 # (tests/test_kernels.py), sums in another order. bf16, every case: kernel
@@ -407,6 +411,32 @@ def _gcnii_bound(torch, h, h0, idx, mask, w, b):
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             nbytes, flops)
+
+
+def _gcnii_backward_bound(torch, h, h0, idx, mask, w, z, out, g, alpha,
+                          beta, needs):
+    """(bound_ms, bound_by, bytes, flops) of one GCNII backward call on
+    these inputs: g and out read once, z, w, idx and mask where a needed
+    gradient reads them, each needed gradient (dh, dh0, dW, db) written
+    once; the flops of gp, db, dW = z^T gp, dz = gp W^T and the scatter
+    of the live entries (dh) and the self column (dh0)."""
+    need_h, need_h0, need_w, need_b = needs
+    m, n_dst, f1 = idx.shape
+    n_src, d = h.shape[1], h.shape[2]
+    need_dz = need_h or need_h0
+    rows = m * n_dst * d
+    words = (2 * rows + rows * need_w + m * d * d * need_dz
+             + idx.numel() * need_dz + mask.numel() * need_h
+             + m * n_src * d * (need_h + need_h0) + m * d * d * need_w
+             + m * d * need_b)
+    live = int((mask != 0).sum())
+    flops = (rows + rows * need_b + 2 * rows * d * need_w
+             + (2 * rows * d + 3 * rows) * need_dz
+             + 2 * live * d * need_h + 2 * rows * need_h0)
+    t_bytes = 4 * words / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            4 * words, flops)
 
 
 def _gcn_bound(torch, h, idx, mask, w):
@@ -497,8 +527,8 @@ def phase_device(torch):
 
 def phase_build(build):
     t0 = time.perf_counter()
-    results = build.build(["gcnii_layer", "graph_agg", "gat_layer",
-                           "graph_agg_csr", "flash_attention"])
+    results = build.build(["gcnii_layer", "gcnii_grad", "graph_agg",
+                           "gat_layer", "graph_agg_csr", "flash_attention"])
     total = time.perf_counter() - t0
     for r in results:
         state = f"{r.seconds:.2f} s" if r.seconds else "already built"
@@ -1437,11 +1467,14 @@ def phase_train(torch, mods):
         # warm-up run, outside the counted run: CUDA context, library
         # handles, and the first joint inference's kernel inputs
         warm = mods["Trainer"](cfg.with_(rounds=1, eval_every=1))
-        with _Capture(ops, op, limit=warm.model_cfg.n_layers) as cap:
+        with _Capture(ops, op, limit=warm.model_cfg.n_layers) as cap, \
+                _Capture(ops, "gcnii_layer_backward_cuda",
+                         limit=warm.model_cfg.n_layers) as bwd_cap:
             warm.run()
         torch.cuda.synchronize()
 
         _zero_counts(graph_agg)                          # ---- counted run
+        graph_agg.gcnii_layer_backward_cuda.launches = 0
         trainer = mods["Trainer"](cfg)
         t0 = time.perf_counter()
         res = trainer.run()
@@ -1449,6 +1482,10 @@ def phase_train(torch, mods):
         wall = time.perf_counter() - t0
         others = _counts(graph_agg)                      # ---- read counts
         launches = others.pop(kernel_name)
+        bwd_launches = graph_agg.gcnii_layer_backward_cuda.launches
+        # GCNII's local backward: every sub-layer of every local step
+        want_bwd = (cfg.n_layers * cfg.n_local_steps * cfg.rounds
+                    if kernel_name == "gcnii_layer_cuda" else 0)
 
         evals = [(e["round"], round(e["val_acc"], 4), round(e["test_acc"], 4))
                  for e in res.history]
@@ -1460,7 +1497,8 @@ def phase_train(torch, mods):
               f"acc {res.test_acc:.4f} (>= {min_acc}), val acc "
               f"{res.val_acc:.4f}, final loss {res.history[-1]['loss']:.4f},"
               f" comm {res.comm_bytes} B; {kernel_name} launches {launches},"
-              f" the other kernels {others}")
+              f" gcnii_layer_backward_cuda {bwd_launches}, the other kernels "
+              f"{others}")
         print(f"train: {name} evals (round, val acc, test acc): {evals}")
         width = _train_width(trainer.model_cfg, trainer.sampler, cfg)
         want_width = ((3, 4, 64, 478, 7, (1, 3), 4, 2),
@@ -1480,6 +1518,10 @@ def phase_train(torch, mods):
                 f"{name}: {kernel_name} launched {launches} times in "
                 f"{cfg.rounds} rounds (want >= {20 * cfg.rounds}), the "
                 f"other kernels {others} (want 0)")
+        if bwd_launches != want_bwd:
+            raise AssertionError(
+                f"{name}: gcnii_layer_backward_cuda launched {bwd_launches} "
+                f"times in {cfg.rounds} rounds (want {want_bwd})")
         for leaf in mods["tree_leaves"](res.params):
             if leaf.device.type != trainer.device.type \
                     or not torch.isfinite(leaf).all():
@@ -1495,6 +1537,7 @@ def phase_train(torch, mods):
         stages = _round_breakdown(torch, mods, trainer, kernel)
         prefetch = _prefetch_profile(torch, mods, cfg, name)
         out[name] = dict(kernel=op, launches=launches, captured=cap.calls,
+                         bwd_launches=bwd_launches, bwd_captured=bwd_cap.calls,
                          rounds=res.rounds_run, seconds=wall,
                          test_acc=res.test_acc, prefetch=prefetch, **stages)
     return out
@@ -3768,29 +3811,54 @@ def phase_ring_decode(torch, mods, full_cache_ms):
     return med
 
 
-def _replay(torch, captured, cuda_fn, plain_fn, bound_fn, scaled=False):
+def _replay(torch, captured, cuda_fn, plain_fn, bound_fn, scaled=False,
+            relative=False):
     """Per-launch numbers of a kernel on exactly the inputs the main path
-    gave it: max abs error, device ms, host-inclusive ms, plain ms, bound.
-    The error is held to KERNEL_ATOL; ``scaled``: to KERNEL_ATOL times the
-    plain output's largest magnitude where that exceeds 1 (trained
-    activations, whose fp32 sums in another order differ by ulps of
-    their own size)."""
+    gave it: max abs error, the plain output's largest magnitude, device
+    ms, host-inclusive ms, plain ms, bound; a second call is held bitwise
+    equal to the first. The error is held to KERNEL_ATOL; ``scaled``: to
+    KERNEL_ATOL times the plain output's largest magnitude where that
+    exceeds 1 (trained activations, whose fp32 sums in another order
+    differ by ulps of their own size); ``relative``: to KERNEL_ATOL times
+    that magnitude whatever it is (gradients, which a mean loss makes
+    small). A kernel that returns a tuple (None where not computed), GCNII's
+    backward, is held output by output; its row lists each output's error
+    and magnitude, n_dst from g (argument 7) and ``needs`` (argument 10)."""
     rows = []
     for i, (args, kw) in enumerate(captured):
-        got = cuda_fn(*args, **kw)
+        got, again = cuda_fn(*args, **kw), cuda_fn(*args, **kw)
         torch.cuda.synchronize()
         want = plain_fn(*args, **kw)
-        err = float((got - want).abs().max())
-        peak = float(want.abs().max())
-        limit = KERNEL_ATOL * (max(1.0, peak) if scaled else 1.0)
-        if err > limit or not torch.isfinite(got).all():
-            raise AssertionError(f"main-path launch {i}: max abs err "
-                                 f"{err:.3e} > {limit:.3e} (plain output's "
-                                 f"largest magnitude {peak:.3e})")
+        single = torch.is_tensor(got)
+        errs, peaks = [], []
+        for j, (a, b, c) in enumerate(zip(*((t,) if single else t
+                                            for t in (got, again, want)))):
+            if a is None:
+                errs.append(None)
+                peaks.append(None)
+                continue
+            err = float((a - c).abs().max())
+            peak = float(c.abs().max())
+            limit = KERNEL_ATOL * (peak if relative else
+                                   max(1.0, peak) if scaled else 1.0)
+            if err > limit or not torch.isfinite(a).all():
+                raise AssertionError(
+                    f"main-path launch {i}, output {j}: max abs err "
+                    f"{err:.3e} > {limit:.3e} (plain output's largest "
+                    f"magnitude {peak:.3e})")
+            if not torch.equal(a, b):
+                raise AssertionError(f"main-path launch {i}, output {j}: "
+                                     "two calls differ")
+            errs.append(err)
+            peaks.append(peak)
         kernel = lambda: cuda_fn(*args, **kw)
         bound_ms, bound_by, _, _ = bound_fn(torch, *args)
-        rows.append(dict(n_src=args[0].shape[1], n_dst=got.shape[1],
-                         max_abs_err=err, plain_max_abs=peak,
+        rows.append(dict(n_src=args[0].shape[1],
+                         n_dst=(got if single else args[7]).shape[1],
+                         max_abs_err=max(e for e in errs if e is not None),
+                         plain_max_abs=peaks[0] if single else peaks,
+                         **({} if single else dict(max_abs_err_by_output=errs,
+                                                   needs=list(args[10]))),
                          ms=_time_ms(torch, kernel),
                          launch_ms=_time_ms(torch, kernel, preload=False),
                          plain_ms=_time_ms(torch, lambda: plain_fn(*args,
@@ -3820,15 +3888,62 @@ def _sums(rows):
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
-def phase_result(torch, graph_agg, trained, served, powerlaw, n_layers, lm,
-                 flash32k, flash_cases, backends):
+def _backward_entry(torch, ops, graph_agg, preset, run, n_layers):
+    """The GCNII backward kernel on the inputs of one local step's
+    backward of the training path (the warm-up round's first)."""
+    rows = _replay(torch, run["bwd_captured"],
+                   graph_agg.gcnii_layer_backward_cuda,
+                   ops.gcnii_layer_backward, _gcnii_backward_bound,
+                   relative=True)
+    entry = dict(
+        name="gcnii_layer_backward", route="cuda",
+        source="src/repro_torch/kernels/csrc/gcnii_grad.cu", replaces=None,
+        replaces_note=("no Pallas counterpart: the reference differentiates "
+                       "gcnii_layer_pallas with jax.vjp in XLA; the plain "
+                       "VJP is ops.gcnii_layer_backward"),
+        launches=run["bwd_launches"],
+        launches_per_round=run["bwd_launches"] / run["rounds"],
+        max_abs_err=max(r["max_abs_err"] for r in rows),
+        tolerance=f"each output within {KERNEL_ATOL:.0e} x its plain "
+                  "output's largest magnitude (sums in another order); two "
+                  "calls bitwise equal",
+        **_sums(rows), library_ms=None,
+        library_note="no single PyTorch call computes the masked gather's "
+                     "transpose with the identity map's VJP",
+        scope=(f"sum over the {n_layers} calls of one local step's backward "
+               f"in a training round of {preset} (M=3, d=64, F+1=4, n_src/"
+               "n_dst 64/16, 512/64, 512/512, 512/512; two launches a call);"
+               " ms, plain_ms: device time (plain_ms: "
+               "ops.gcnii_layer_backward on the card); launch_ms: with the "
+               "host's enqueue time; launches: calls in the preset's counted "
+               "200-round Trainer run"),
+        per_launch=rows)
+    print("result: gcnii_layer_backward training, per call (device ms / with "
+          "the host / plain): " + ", ".join(
+              f"{r['n_src']}->{r['n_dst']} {r['ms']:.4f} / "
+              f"{r['launch_ms']:.4f} / {r['plain_ms']:.4f}" for r in rows)
+          + f"; sum {entry['ms']:.4f} / {entry['launch_ms']:.4f} / "
+          f"{entry['plain_ms']:.4f}; {entry['launches_per_round']:.0f} calls "
+          "a round")
+    print("result: gcnii_layer_backward training, per call and output "
+          "(dh, dh0, dW, db: max abs err / plain's largest magnitude): "
+          + ", ".join(f"{r['n_src']}->{r['n_dst']} " + " ".join(
+              "-" if e is None else f"{e:.2e}/{p:.2e}"
+              for e, p in zip(r["max_abs_err_by_output"],
+                              r["plain_max_abs"])) for r in rows))
+    return entry
+
+
+def phase_result(torch, graph_agg, ops, trained, served, powerlaw, n_layers,
+                 lm, flash32k, flash_cases, backends):
     """The kernels line: each kernel timed on the inputs the training path
     gave it in one joint inference (the launches of its preset's counted
     200-round run); GCNII and GAT also on one cold answer of the serving
     path; the CSR kernel on the input one cold 16-query answer of the
     million-node serving path gave it (the launches of that counted run);
     the flash kernel on the first layer's input of the counted dense
-    SmolLM-360M prefill, and at the 32k shape. ``backends`` adds the
+    SmolLM-360M prefill, and at the 32k shape; GCNII's backward kernel on
+    the inputs of one local step's backward. ``backends`` adds the
     GCNII launches of the simulation and sharded phases' counted runs and,
     under ``examples``, the examples phase's (with the launches it held to
     the plain version on the vfl rows' new shapes)."""
@@ -3890,6 +4005,9 @@ def phase_result(torch, graph_agg, trained, served, powerlaw, n_layers, lm,
         if name == "gcnii_layer":
             entry.update(backends)
         entries.append(entry)
+        if name == "gcnii_layer":
+            entries.append(_backward_entry(torch, ops, graph_agg, preset,
+                                           run, n_layers))
     launches, captured = powerlaw
     rows = _replay(torch, captured, graph_agg.graph_agg_csr_cuda,
                    graph_agg.graph_agg_csr_plain, _csr_bound)
@@ -4079,7 +4197,7 @@ def main() -> int:
     mods.update(dryrun=dryrun, op_cost=op_cost)
     lm["dryrun"] = _timed("dryrun", phase_dryrun, torch, mods, card)
     flash32k = _timed("flash32k", phase_flash_32k, torch, flash)
-    _timed("result", phase_result, torch, graph_agg, trained, served,
+    _timed("result", phase_result, torch, graph_agg, ops, trained, served,
            powerlaw, get_preset("cora-gcnii-glasu").n_layers, lm, flash32k,
            flash_cases, dict(
                sim_launches_per_round=sim["launches_per_round"],

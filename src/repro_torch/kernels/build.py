@@ -44,6 +44,12 @@ SIGNATURES = {
                    _P, _P, _P, _P, _P,                  # out wh scores p x
                    _I, _I, _I, _I, _I, _I, _I,          # m n_src n_dst f1 d H dh
                    _I, _P]),                            # device stream
+    "gcnii_grad": ("gcnii_grad_launch",
+                   [_P, _P, _P, _P, _P, _P,             # g out z w idx mask
+                    _P, _P, _P, _P,                     # dh dh0 dw db
+                    _P, _P, _P, _P,                     # dz coef dwp dbp
+                    _I, _I, _I, _I, _I,                 # m n_src n_dst f1 d
+                    _F, _F, _I, _P]),                   # alpha beta device stream
     "gcnii_layer": ("gcnii_layer_launch",
                     [_P, _P, _P, _P, _P, _P, _P, _P,    # h h0 idx mask w b out z
                      _I, _I, _I, _I, _I,                # m n_src n_dst f1 d
@@ -58,6 +64,11 @@ SIGNATURES = {
                   [_P, _P, _P, _P, _P, _P,              # h idx mask w out mean
                    _I, _I, _I, _I, _I, _I,              # m n_src n_dst f1 d d_out
                    _I, _P]),                            # device stream
+}
+# further C entry points a library exports: (symbol, argtypes), each
+# returning an int
+QUERIES = {
+    "gcnii_grad": [("gcnii_grad_parts", [_I, _I])],     # n_dst d
 }
 
 _lock = threading.Lock()
@@ -133,9 +144,10 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             (res,) = build([name])
             lib = ctypes.CDLL(str(res.path))
-            symbol, argtypes = SIGNATURES[name]
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for symbol, argtypes in [SIGNATURES[name],
+                                     *QUERIES.get(name, [])]:
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _loaded[name] = lib
         return lib

@@ -18,9 +18,11 @@ float32/int32 CUDA tensors of one device. They raise on anything else and
 on a failed launch; they never fall back to the plain version. With
 ``save=True`` each also returns the intermediates its backward needs (the
 masked mean for GCN, z for GCNII; wh, the softmax and the pre-activation
-logits for GAT), written by the kernel itself. Each ``.launches`` counts
-its wrapper's launches (one per call, whatever the kernel's internal
-passes), so a run can show that a path went through the kernel.
+logits for GAT), written by the kernel itself. GCNII's backward has a
+kernel too, ``gcnii_layer_backward_cuda`` (``csrc/gcnii_grad.cu``); its
+plain version is ``ops.gcnii_layer_backward``. Each ``.launches`` counts
+its wrapper's calls that launched (one per call, whatever the kernel's
+internal passes), so a run can show that a path went through the kernel.
 
 The CSR kernel reads the reference's edge-slab layout: tile i (destination
 rows [128i, 128i+128)) owns slots [i·slab, (i+1)·slab) of the idx / seg /
@@ -367,6 +369,88 @@ def gcnii_layer_cuda(h, h0, idx, mask, w, b, *, alpha: float, beta: float,
 
 
 gcnii_layer_cuda.launches = 0
+
+
+def _r4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def gcnii_layer_backward_cuda(h, h0, idx, mask, w, z, out, g, alpha, beta,
+                              needs=(True, True, True, True)):
+    """VJP of the client-stacked GCNII sub-layer on the hand-written Hopper
+    kernel pair (``csrc/gcnii_grad.cu``).
+
+    Same contract as ``ops.gcnii_layer_backward``: ``(dh, dh0, dw, db)`` for
+    ``needs`` = which of (h, h0, w, b) need one (None elsewhere); of h and
+    h0 only the shapes are read. Every tensor must be contiguous on one
+    CUDA device (float32; idx int32). The outputs and one scratch buffer
+    (dz, the scatter coefficients, per-row-tile partial sums of dw and db)
+    are allocated here and both launches run on the current stream. Every
+    sum has one fixed order, so a call is bitwise repeatable. A block of
+    the first launch stages W^T and up to 32 rows of gp and z (the C source
+    picks how many); the call raises where W^T and one row outgrow a
+    block's 227 KB (d past 240, which the forward does not take either).
+
+    Cost: every block of the scatter owns 8 source rows and sweeps all
+    n_dst·(F+1) entries of its client, so its index reads grow as
+    M·(n_src/8)·n_dst·(F+1), quadratic in the sampler's size_cap. On an
+    H100 it stays 24-32x under the plain VJP's device time from cap 512 to
+    8192 (``tools/gcnii_grad_scaling.py``); past that, a pass that buckets
+    the entries by source tile first would keep it linear.
+    """
+    fn = "gcnii_layer_backward_cuda"
+    m, n_src, d, n_dst, f1, dev = _cuda_stack(fn, h, idx)
+    _check(fn, "h", h, torch.float32, (m, n_src, d), dev)
+    _check(fn, "h0", h0, torch.float32, (m, n_src, d), dev)
+    _check(fn, "idx", idx, torch.int32, (m, n_dst, f1), dev)
+    _check(fn, "mask", mask, torch.float32, (m, n_dst, f1), dev)
+    _check(fn, "w", w, torch.float32, (m, d, d), dev)
+    for name, t in (("z", z), ("out", out), ("g", g)):
+        _check(fn, name, t, torch.float32, (m, n_dst, d), dev)
+    need_h, need_h0, need_w, need_b = needs
+    grads = tuple(torch.empty(shape, dtype=torch.float32, device=dev)
+                  if need else None
+                  for shape, need in (((m, n_src, d), need_h),
+                                      ((m, n_src, d), need_h0),
+                                      ((m, d, d), need_w), ((m, d), need_b)))
+    if not any(needs):
+        return grads
+    if m == 0 or n_dst == 0 or d == 0:          # no output row: all zero
+        return tuple(t if t is None else t.zero_() for t in grads)
+    if n_src == 0 or f1 == 0:
+        raise ValueError(f"{fn}: empty source set or fanout")
+    lib = build.load("gcnii_grad")
+    parts = lib.gcnii_grad_parts(n_dst, d)      # row tiles of launch (1)
+    if parts < 1:
+        raise ValueError(f"{fn}: W^T and one row of gp and z outgrow a "
+                         f"block's shared memory (d = {d})")
+    if max(m * n_dst * max(d, f1), m * n_src * d, m * parts * d * d) \
+            >= 2 ** 31:
+        raise ValueError(f"{fn}: more than 2^31 elements in one tensor")
+    # scratch: dz, coef, dw's and db's partial sums, each 16-byte aligned
+    sizes = (m * n_dst * d if need_h or need_h0 else 0,
+             m * n_dst * f1 if need_h else 0,
+             m * parts * d * d if need_w else 0,
+             m * parts * d if need_b else 0)
+    ws = torch.empty(sum(_r4(n) for n in sizes), dtype=torch.float32,
+                     device=dev)
+    ptr, scratch = ws.data_ptr(), []
+    for n in sizes:
+        scratch.append(ptr if n else None)
+        ptr += 4 * _r4(n)
+    _launch(fn, lib.gcnii_grad_launch(
+        g.data_ptr(), out.data_ptr(), z.data_ptr(), w.data_ptr(),
+        idx.data_ptr(), mask.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in grads), *scratch,
+        m, n_src, n_dst, f1, d, float(alpha), float(beta),
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream),
+        f"M={m}, n_src={n_src}, n_dst={n_dst}, F+1={f1}, d={d}, "
+        f"needs={tuple(needs)}")
+    gcnii_layer_backward_cuda.launches += 1
+    return grads
+
+
+gcnii_layer_backward_cuda.launches = 0
 
 
 def gat_layer_cuda(h, idx, mask, w, a_src, a_dst, b, *, save: bool = False):

@@ -9,15 +9,18 @@ op is a ``torch.autograd.Function``. Its forward is the kernel (or the plain
 version on the CPU); when a gradient is needed the forward also writes the
 intermediates the backward needs (the masked mean for GCN, z for GCNII;
 wh, the softmax and the pre-activation logits for GAT), so the backward
-never re-runs a forward. The backward is one explicit function per op, the
-same code on both devices: the VJP of the oracle (``ref.graph_agg_ref``,
-``ref.gcnii_layer_ref``, ``ref.gat_layer_ref``), which the reference takes
-with ``jax.vjp`` in XLA outside any Pallas kernel (it has no backward
-kernel). Its products are ``torch.bmm`` and the gather's transpose is an
-accumulating ``index_put_``, which adds every duplicate source and scales
-by the mask (masked slots add zero). On CUDA that accumulation sorts the
-indices instead of using atomics, so a run on the card is reproducible.
-``idx`` and ``mask`` get no gradient.
+never re-runs a forward. Each op has one explicit backward function, the
+VJP of the oracle (``ref.graph_agg_ref``, ``ref.gcnii_layer_ref``,
+``ref.gat_layer_ref``), which the reference takes with ``jax.vjp`` in XLA
+outside any Pallas kernel (it has no backward kernel). Its products are
+``torch.bmm`` and the gather's transpose is an accumulating ``index_put_``,
+which adds every duplicate source and scales by the mask (masked slots add
+zero); on CUDA that accumulation sorts the indices instead of using
+atomics, so a run on the card is reproducible. GCN and GAT run that plain
+VJP on both devices. GCNII's is the plain VJP on the CPU and the oracle of
+its hand-written backward kernel (``gcnii_layer_backward_cuda``, two
+launches, no sort and no float atomics, bitwise repeatable), which a CUDA
+tensor always takes. ``idx`` and ``mask`` get no gradient.
 
 ``flash_attention`` is forward only, as the reference's is: its Pallas
 kernel has no ``custom_vjp``, and ``pallas_call`` has no reverse-mode rule,
@@ -43,7 +46,8 @@ import torch
 from ..graph.csr_plan import csr_slot_map, plan_csr_slabs
 from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .graph_agg import (csr_rows, csr_segment_sums, ell_to_slabs,
-                        gat_layer_cuda, gat_layer_plain, gcnii_layer_cuda,
+                        gat_layer_cuda, gat_layer_plain,
+                        gcnii_layer_backward_cuda, gcnii_layer_cuda,
                         gcnii_layer_plain, graph_agg_csr_cuda,
                         graph_agg_csr_plain, graph_agg_cuda, graph_agg_plain)
 
@@ -297,7 +301,9 @@ class _GcniiLayer(torch.autograd.Function):
     def backward(ctx, g):
         h, h0, idx, mask, w, z, out = ctx.saved_tensors
         n = ctx.needs_input_grad
-        dh, dh0, dw, db = gcnii_layer_backward(
+        bwd = gcnii_layer_backward_cuda if h.device.type == "cuda" \
+            else gcnii_layer_backward
+        dh, dh0, dw, db = bwd(
             h, h0, idx, mask, w, z, out, g.contiguous(), ctx.alpha, ctx.beta,
             (n[0], n[1], n[4], n[5]))
         return dh, dh0, None, None, dw, db, None, None

@@ -38,6 +38,40 @@ GCNII_CASES = [
 ]
 
 
+def gcnii_grad_inputs(seed, m, n_src, n_dst, f1, d, case="plain"):
+    """A GCNII forward's inputs for its backward. case "dup" lays a level
+    out as the sampler does: 60 % of the fanout slots masked and pointing
+    at row 0, and the last quarter of the rows padding (mask all 0, every
+    slot, the self column too, at row 0), so row 0 takes over half the
+    entries."""
+    h, h0, idx, mask, w, b = gcnii_inputs(
+        seed, m, n_src, n_dst, f1, d, "ragged" if case == "ragged" else
+        "plain")
+    if case == "dup":
+        rng = np.random.default_rng(seed + 1000)
+        mask[:, :, 1:] = rng.random((m, n_dst, f1 - 1)) < 0.4
+        idx[mask == 0] = 0
+        pad = n_dst - n_dst // 4
+        mask[:, pad:] = 0.0
+        idx[:, pad:] = 0
+    return h, h0, idx, mask, w, b
+
+
+GCNII_GRAD_CASES = [
+    # m, n_src, n_dst, f1, d, case
+    (3, 512, 512, 4, 64, "dup"),       # the main path: levels 0-1
+    (3, 512, 64, 4, 64, "dup"),        # 512 -> 64
+    (3, 64, 16, 4, 64, "dup"),         # 64 -> 16
+    (1, 512, 512, 4, 64, "dup"),       # one client
+    (2, 40, 15, 5, 7, "plain"),        # d = 7: scalar columns
+    (3, 90, 77, 9, 24, "ragged"),      # zero rows, mask[:, 0] = 0
+    (2, 60, 20, 5, 128, "plain"),      # d = 128
+    (2, 80, 10, 64, 16, "ragged"),     # F+1 = 64
+    (2, 40, 12, 1, 16, "plain"),       # F+1 = 1
+    (3, 2708, 40, 33, 64, "plain"),    # cora's source set, W = 33
+]
+
+
 def gcn_inputs(seed, m, n_src, n_dst, f1, d, d_out, ragged=False):
     rng = np.random.default_rng(seed)
     h = rng.normal(size=(m, n_src, d)).astype(np.float32)

@@ -16,6 +16,8 @@ order); bf16 at one bf16 rounding, |err| <= 2^-7 |plain| + 1e-5 (both sum
 in fp32 and round once, so they are at most one bf16 step apart, plus room
 for the fp32 sums' order), as ``chip_smoke.py`` holds it.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -33,8 +35,9 @@ from repro_torch.models import transformer as tfm
 from repro_torch.tree import tree_leaves, tree_map
 
 from _torch_inputs import (CSR_CASES, FLASH_CASES, GAT_CASES, GCN_CASES,
-                           GCNII_CASES, cotangent, csr_weights, flash_inputs,
-                           gat_inputs, gcn_inputs, gcnii_inputs, rand_csr,
+                           GCNII_CASES, GCNII_GRAD_CASES, cotangent,
+                           csr_weights, flash_inputs, gat_inputs, gcn_inputs,
+                           gcnii_grad_inputs, gcnii_inputs, rand_csr,
                            shuffle_slabs)
 
 CARD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -86,6 +89,72 @@ def test_gcnii_cuda_wrapper_rejects_strided_input(cuda_device):
                            b.cpu(), alpha=0.1, beta=0.5)
     (want_dw,) = torch.autograd.grad(want.sum(), cpu_w)
     torch.testing.assert_close(dw.cpu(), want_dw, **CARD_TOL)
+
+
+def _gcnii_grad_args(dev, seed, m, n_src, n_dst, f1, d, case, alpha=0.1,
+                     beta=0.25):
+    """(h, h0, idx, mask, w, z, out, g, alpha, beta) on ``dev``: z and out
+    from the plain forward."""
+    h, h0, idx, mask, w, b = (torch.from_numpy(x) for x in gcnii_grad_inputs(
+        seed, m, n_src, n_dst, f1, d, case))
+    out, z = graph_agg.gcnii_layer_plain(h, h0, idx, mask, w, b, alpha=alpha,
+                                         beta=beta, save=True)
+    g = torch.from_numpy(cotangent(seed + 1, (m, n_dst, d)))
+    return (*(t.to(dev) for t in (h, h0, idx, mask, w, z, out, g)), alpha,
+            beta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n_src,n_dst,f1,d,case", GCNII_GRAD_CASES)
+def test_gcnii_backward_cuda_kernel_matches_plain(cuda_device, m, n_src,
+                                                  n_dst, f1, d, case):
+    """The backward kernel against the plain VJP on the card; a second call
+    is bitwise equal (no atomics, no sort)."""
+    args = _gcnii_grad_args(cuda_device, 30, m, n_src, n_dst, f1, d, case)
+    kernel = graph_agg.gcnii_layer_backward_cuda
+    before = kernel.launches
+    got = kernel(*args)
+    again = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    want = ops.gcnii_layer_backward(*args)
+    for a, b, c in zip(got, again, want):
+        torch.testing.assert_close(a, c, **CARD_TOL)
+        assert torch.equal(a, b)
+    if case == "dup":           # row 0 took over half the entries
+        assert int((args[2] == 0).sum()) > args[2].numel() // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("needs", [n for n in itertools.product(
+    (True, False), repeat=4) if any(n)], ids=lambda n: "".join(
+        "hHwb"[i] if x else "-" for i, x in enumerate(n)))
+def test_gcnii_backward_cuda_honours_needs(cuda_device, needs):
+    args = _gcnii_grad_args(cuda_device, 31, 3, 512, 512, 4, 64, "dup")
+    got = graph_agg.gcnii_layer_backward_cuda(*args, needs=needs)
+    want = ops.gcnii_layer_backward(*args, needs=needs)
+    for a, b, need in zip(got, want, needs):
+        assert (a is None) == (b is None) == (not need)
+        if need:
+            torch.testing.assert_close(a, b, **CARD_TOL)
+
+
+@pytest.mark.cuda
+def test_gcnii_backward_cuda_refusals_and_empty_calls(cuda_device):
+    args = list(_gcnii_grad_args(cuda_device, 32, 2, 40, 12, 4, 16, "plain"))
+    kernel = graph_agg.gcnii_layer_backward_cuda
+    before = kernel.launches
+    with pytest.raises(TypeError, match="int32"):
+        kernel(*args[:2], args[2].long(), *args[3:])
+    with pytest.raises(ValueError, match="not contiguous"):
+        kernel(*args[:7], args[7].transpose(1, 2).contiguous()
+               .transpose(1, 2), *args[8:])
+    assert kernel(*args, needs=(False,) * 4) == (None,) * 4
+    empty = list(_gcnii_grad_args(cuda_device, 33, 2, 40, 0, 4, 16, "plain"))
+    for t, shape in zip(kernel(*empty), [(2, 40, 16), (2, 40, 16),
+                                         (2, 16, 16), (2, 16)]):
+        assert tuple(t.shape) == shape and not t.any()
+    assert kernel.launches == before
 
 
 @pytest.mark.cuda
@@ -239,7 +308,8 @@ KERNELS = {"gcn": "graph_agg_cuda", "gcnii": "gcnii_layer_cuda",
 @pytest.mark.parametrize("backbone", ["gcn", "gcnii", "gat"])
 def test_training_rounds_on_card_match_cpu(cuda_device, backbone):
     """Two SGD rounds (Q = 2) from the same parameters and batches on the
-    card and on the CPU; the card's rounds go through the kernels."""
+    card and on the CPU; the card's rounds go through the kernels, GCNII's
+    local backward through its backward kernel."""
     cfg = ExperimentConfig(name="card-rounds", dataset="tiny",
                            backbone=backbone, hidden=16, batch_size=8,
                            size_cap=96, n_local_steps=2, optimizer="sgd",
@@ -251,15 +321,20 @@ def test_training_rounds_on_card_match_cpu(cuda_device, backbone):
     opt = cfg.make_optimizer()
     step = glasu.make_multi_round_fn(mcfg, opt, 2)
     kernel = getattr(graph_agg, KERNELS[backbone])
+    bwd = graph_agg.gcnii_layer_backward_cuda
     out = {}
     for dev in (cuda_device, torch.device("cpu")):
-        before = kernel.launches
+        before = (kernel.launches, bwd.launches)
         p = tree_map(lambda t: t.to(dev), p0)
         p, _, losses = step(p, opt.init(p), batch_to_device(host, dev))
         out[dev.type] = (tree_leaves(tree_map(lambda t: t.cpu(), p)),
-                         losses.cpu(), kernel.launches - before)
-    (pc, lc, launches), (pp, lp, none) = out["cuda"], out["cpu"]
+                         losses.cpu(), kernel.launches - before[0],
+                         bwd.launches - before[1])
+    (pc, lc, launches, bwds), (pp, lp, none, no_bwd) = out["cuda"], out["cpu"]
     assert launches == 2 * (1 + 2) * mcfg.n_layers and none == 0
+    # the local backward: 2 rounds x Q 2 x every sub-layer
+    assert bwds == (2 * 2 * mcfg.n_layers if backbone == "gcnii" else 0)
+    assert no_bwd == 0
     torch.testing.assert_close(lc, lp, **CARD_TOL)
     for a, b in zip(pc, pp):
         torch.testing.assert_close(a, b, **CARD_TOL)

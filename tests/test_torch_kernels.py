@@ -10,6 +10,8 @@ reference's ``custom_vjp`` backward computes) and through
 kernel tolerances (rtol = atol = 2e-5; 3e-5 for GAT). The rows that need
 the card live in ``tests/test_torch_cuda.py``, which imports no jax.
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +28,8 @@ from repro_torch.kernels import ref as tref
 from repro_torch.models import gnn as tgnn
 
 from _torch_inputs import (GAT_CASES, GCN_CASES, GCNII_CASES, cotangent,
-                           gat_inputs, gcn_inputs, gcnii_inputs)
+                           gat_inputs, gcn_inputs, gcnii_grad_inputs,
+                           gcnii_inputs)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 GAT_TOL = dict(rtol=3e-5, atol=3e-5)
@@ -75,6 +78,59 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         graph_agg.gat_layer_cuda(*gat)
     assert graph_agg.gat_layer_cuda.launches == before
+
+
+def test_gcnii_backward_on_cpu_takes_the_plain_vjp():
+    """A CPU tensor's GCNII backward is the plain VJP: the backward kernel's
+    counter does not move and autograd's gradients are exactly
+    ops.gcnii_layer_backward's."""
+    h, h0, idx, mask, w, b = map(torch.from_numpy, gcnii_grad_inputs(
+        12, 3, 64, 16, 4, 16, "dup"))
+    g = torch.from_numpy(cotangent(13, (3, 16, 16)))
+    leaves = [t.clone().requires_grad_(True) for t in (h, h0, w, b)]
+    before = graph_agg.gcnii_layer_backward_cuda.launches
+    out = ops.gcnii_layer(leaves[0], leaves[1], idx, mask, leaves[2],
+                          leaves[3], alpha=0.1, beta=0.25)
+    got = torch.autograd.grad(out, leaves, g)
+    assert graph_agg.gcnii_layer_backward_cuda.launches == before
+    fwd, z = graph_agg.gcnii_layer_plain(h, h0, idx, mask, w, b, alpha=0.1,
+                                         beta=0.25, save=True)
+    want = ops.gcnii_layer_backward(h, h0, idx, mask, w, z, fwd, g, 0.1, 0.25)
+    for a, b_ in zip(got, want):
+        assert torch.equal(a, b_)
+
+
+def test_gcnii_backward_cuda_refuses_cpu_tensors():
+    h, h0, idx, mask, w, b = map(torch.from_numpy, gcnii_grad_inputs(
+        14, 2, 20, 8, 4, 8))
+    out, z = graph_agg.gcnii_layer_plain(h, h0, idx, mask, w, b, alpha=0.1,
+                                         beta=0.5, save=True)
+    before = graph_agg.gcnii_layer_backward_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        graph_agg.gcnii_layer_backward_cuda(h, h0, idx, mask, w, z, out,
+                                            torch.ones_like(out), 0.1, 0.5)
+    assert graph_agg.gcnii_layer_backward_cuda.launches == before
+
+
+def test_gcnii_backward_kernel_keeps_apart_from_the_forward(tmp_path,
+                                                            monkeypatch):
+    """No kernel of csrc/gcnii_grad.cu carries the forward kernel's name
+    (the benchmark's trace finds the forward by it), and editing the
+    backward's source leaves the forward's library as it was."""
+    src = (build.CSRC / "gcnii_grad.cu").read_text()
+    kernels = re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\)\s*)?"
+                         r"(\w+)\s*\(", src)
+    assert {"gcnii_grad_dz_kernel", "gcnii_grad_scatter_kernel"} \
+        <= set(kernels)
+    assert not any("gcnii_layer_kernel" in k for k in kernels)
+    for p in build.CSRC.glob("*.cu*"):
+        (tmp_path / p.name).write_text(p.read_text())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    forward, backward = (build.library_path(n)
+                         for n in ("gcnii_layer", "gcnii_grad"))
+    (tmp_path / "gcnii_grad.cu").write_text(src + "\n// edit\n")
+    assert build.library_path("gcnii_layer") == forward
+    assert build.library_path("gcnii_grad") != backward
 
 
 def test_build_names_library_by_source_hash(tmp_path, monkeypatch):
