@@ -37,7 +37,7 @@ SERVE_FAULTS = ("altered", "half_clients", "no_exchange")
 def _train_as_program(out, rounds):
     """A reference run's outputs in the shape ``train.readings`` takes for
     the program's."""
-    return dict(losses=list(out["losses"]), mu1=out["mu1"],
+    return dict(losses=list(out["losses"]), mu=out["mu"],
                 p0=out["params0"], p_check=out["params"],
                 prog_eval=out.get("eval_logits"),
                 bills=[out["bytes_round"]] * rounds)
@@ -47,11 +47,13 @@ def train_control(ctx, seed: int, kinds=("tf32",) + TRAIN_FAULTS) -> dict:
     """{kind: readings} of the control and the planted faults against the
     float32 reference, from ``seed``."""
     data, raw = common.dataset(ctx)
-    cfg = common.experiment(ctx)
+    cfg = train.experiment(ctx)
     dims = train.dims_of(cfg, data)
     rounds = int(ctx.traffic["check_rounds"])
     cap = cfg.eval_table_cap if cfg.eval_every else None
-    kw = dict(eval_cap=cap)
+    # the moment at the first step's end, where the program's run reads it
+    first = train.step_rounds(0, cfg.rounds_per_step, cfg.eval_every)
+    kw = dict(eval_cap=cap, moment_round=first)
     ref = follow.train_follow(raw, dims, train.sampling_of(cfg), seed,
                               rounds, ctx.device, **kw)
     out = {}
@@ -60,7 +62,7 @@ def train_control(ctx, seed: int, kinds=("tf32",) + TRAIN_FAULTS) -> dict:
             raw, dims, train.sampling_of(cfg), seed, rounds, ctx.device,
             tf32=kind == "tf32", fault=None if kind == "tf32" else kind, **kw)
         p = _train_as_program(alt, rounds)
-        checks, diag = train.readings(p["losses"], p["mu1"], p["p0"],
+        checks, diag = train.readings(p["losses"], p["mu"], p["p0"],
                                       p["p_check"], p["prog_eval"],
                                       p["bills"], ref)
         out[kind] = {**checks, **diag}

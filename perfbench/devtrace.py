@@ -46,6 +46,97 @@ def _bound(key: str, args, kw) -> Tuple[int, int]:
                               int(n_dst), save)
 
 
+def union_ns(intervals) -> int:
+    """Nanoseconds covered by the union of ``(start, end)`` intervals."""
+    total, hi = 0, None
+    for s, e in sorted(intervals):
+        if hi is None or s > hi:
+            total += e - s
+            hi = e
+        elif e > hi:
+            total += e - hi
+            hi = e
+    return total
+
+
+class WindowBusy:
+    """The device's busy time over a whole measured window, for the
+    end-to-end metrics: a device-only trace (the host's operations are not
+    traced, so the host runs as it would untraced but for the profiler's
+    own record of each launch), taken in chunks of ``CHUNK_SECONDS``. Each
+    chunk closes after a synchronisation and is reduced at once to the
+    union of its device intervals, so the profiler's activity buffers
+    never fill and no raw trace is kept. ``kernel_ns`` is the union of the
+    kernels' intervals alone, without the copies and fills. Where the
+    device is the CPU (the CPU tests) the traced operations are the CPU's,
+    of the profiler's own thread; work that another thread does is added
+    by ``cpu_span``."""
+
+    CHUNK_SECONDS = 5.0
+
+    def __init__(self, device: str):
+        self.cuda = device == "cuda"
+        self.busy_ns = self.kernel_ns = 0
+        self.n_ops = 0
+        self.chunks = 0
+        self._prof = None
+        self._spans = []
+
+    @contextlib.contextmanager
+    def cpu_span(self):
+        """On the CPU, a call of another thread that does the device's
+        work: the profiler sees only the thread that started it."""
+        t0 = time.perf_counter_ns()
+        try:
+            yield
+        finally:
+            if not self.cuda and self._prof is not None:
+                self._spans.append((t0, time.perf_counter_ns()))
+
+    def start(self):
+        from torch.profiler import ProfilerActivity, profile
+        act = ProfilerActivity.CUDA if self.cuda else ProfilerActivity.CPU
+        self._prof = profile(activities=[act])
+        self._prof.start()
+        self.t_chunk = time.perf_counter()
+
+    def stop(self):
+        from torch.autograd import DeviceType
+        if self.cuda:
+            torch.cuda.synchronize()
+        self._prof.stop()
+        want = DeviceType.CUDA if self.cuda else DeviceType.CPU
+        ev = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+              for e in self._prof.profiler.kineto_results.events()
+              if e.device_type() == want]
+        self._prof = None
+        iv = [(s, e) for s, e, _ in ev]
+        self.busy_ns += union_ns(iv) + union_ns(self._spans)
+        self.kernel_ns += union_ns(
+            [(s, e) for s, e, n in ev
+             if not n.startswith(("Memcpy", "Memset"))]) \
+            + union_ns(self._spans)
+        self.n_ops += len(iv) + len(self._spans)
+        self._spans = []
+        self.chunks += 1
+
+    def due(self) -> bool:
+        return time.perf_counter() - self.t_chunk >= self.CHUNK_SECONDS
+
+    def lap(self):
+        """Closes the chunk and opens the next once it has lasted
+        ``CHUNK_SECONDS``. Call it where no device work of the window can
+        be launched until it returns: work launched between the two would
+        not be traced."""
+        if self.due():
+            self.stop()
+            self.start()
+
+    @property
+    def busy_s(self) -> float:
+        return self.busy_ns / 1e9
+
+
 class Tracer:
     def __init__(self, ops):
         self.ops = ops

@@ -29,12 +29,13 @@ def experiment(ctx):
 
 
 def tracer(ctx, ops):
-    """A ``Tracer`` for a ``--trace 1`` run on the card (the profiler
-    loaded here, in set-up), else None."""
-    if not (ctx.trace and ctx.device == "cuda"):
+    """A ``Tracer`` for a ``--trace 1`` run on the card, else None. On the
+    card the profiler is loaded here, in set-up, in every run: a run not
+    traced for the per-layer metrics traces its window's device time."""
+    if ctx.device != "cuda":
         return None
     Tracer.warm_up()
-    return Tracer(ops)
+    return Tracer(ops) if ctx.trace else None
 
 
 def sync(ctx):

@@ -9,11 +9,16 @@ batcher, runs the mix for ``warmup_s`` seconds and waits for every answer
 The window then sends the mix's requests at their due times from this
 thread for ``--seconds``, whatever the system's state. The mix's rate is
 above the highest rate the system sustains (its ``knee_per_s``), so the
-queue grows through the window and every dispatch runs full: the cell
-reports the rate at which the system answers, the window's requests over
-the time from its opening until the last of them was answered. Requests
-due in the window are waited for up to ``WAIT_PAST_CLOSE_S`` past its
-close.
+queue grows through the window and every dispatch runs full. The
+end-to-end number is the time the device spent in kernels from the
+window's opening until the last of its requests was answered (a
+device-only trace of all of it, ``devtrace.WindowBusy``) per answer. The
+copies are left out of it: most of them are from pageable host memory,
+and the trace times such a copy with the host's staging of it, so they
+follow the host's speed. The rate at which the system answers, the
+window's requests over that time, is read per layer in a ``--trace 1``
+run. Requests due in the window are waited for up to
+``WAIT_PAST_CLOSE_S`` past its close.
 
 After the window every answer is held to the reference's exact
 full-graph forward at its node (the ensemble logits), and the byte bill
@@ -33,15 +38,17 @@ import torch
 from .. import flops as flops_mod
 from .. import traffic as traffic_mod
 from .. import weights
-from ..devtrace import TRACE_SECONDS
+from ..devtrace import TRACE_SECONDS, WindowBusy
 from ..reference import cache as cache_ref
 from ..reference import follow, tables
 from . import common
 from .train import dims_of
 
 # the backlog of a window offered at twice the knee drains in about one
-# window more; this leaves room for a host half as fast
-WAIT_PAST_CLOSE_S = 150.0
+# window more untraced; under the window's device trace, which slows the
+# host, it took up to 130 s past the close on an H100 host. This leaves
+# room beyond that, and a run still ends within six minutes
+WAIT_PAST_CLOSE_S = 200.0
 
 
 class _Dispatches:
@@ -53,13 +60,21 @@ class _Dispatches:
         self.session, self.tracer = session, tracer
         self.serve = session.serve
         self.log = []               # (ids, fresh rows, wire bytes)
+        self.busy = None            # the window's WindowBusy, on the CPU
+        # held by every call of the session, and by the window's device
+        # trace while it closes one chunk and opens the next
+        self.gate = threading.Lock()
 
     def answer(self, nodes):
-        if self.tracer is None:
-            ans = self.session.answer(nodes)
-        else:
-            with self.tracer.span("InferenceSession.answer"):
+        with self.gate:
+            if self.busy is not None:
+                with self.busy.cpu_span():
+                    ans = self.session.answer(nodes)
+            elif self.tracer is None:
                 ans = self.session.answer(nodes)
+            else:
+                with self.tracer.span("InferenceSession.answer"):
+                    ans = self.session.answer(nodes)
         self.log.append((np.asarray(nodes).copy(), dict(ans.fresh_rows),
                          ans.wire_bytes))
         return ans
@@ -90,8 +105,15 @@ class Requests:
             if not self._left:
                 self._all.set()
 
-    def wait(self, deadline: float):
-        """Until every request is answered or failed, or ``deadline``."""
+    def wait(self, deadline: float, tick=None):
+        """Until every request is answered or failed, or ``deadline``;
+        ``tick()`` every ``WindowBusy.CHUNK_SECONDS`` meanwhile."""
+        while tick is not None and not self._all.is_set():
+            left = deadline - time.perf_counter()
+            if left <= 0:
+                return
+            self._all.wait(min(left, WindowBusy.CHUNK_SECONDS))
+            tick()
         self._all.wait(max(0.0, deadline - time.perf_counter()))
 
     @property
@@ -99,15 +121,18 @@ class Requests:
         return ~np.isnan(self.done)
 
 
-def send(batcher, offsets, nodes, t0: float, n_classes: int, split=None):
+def send(batcher, offsets, nodes, t0: float, n_classes: int, split=None,
+         tick=None):
     """Submit each request at ``t0 + offset``; returns its ``Requests``.
     ``split = (offset, fn)`` calls ``fn()`` once, before the first request
-    due at or after ``offset``."""
+    due at or after ``offset``; ``tick()`` is called before each."""
     req = Requests(t0 + offsets, n_classes)
     for i in range(len(offsets)):
         if split is not None and offsets[i] >= split[0]:
             split[1]()
             split = None
+        if tick is not None:
+            tick()
         wait = req.due[i] - time.perf_counter()
         if wait > 0:
             time.sleep(wait)
@@ -178,14 +203,33 @@ def run(ctx) -> dict:
                 mark.update(t=time.perf_counter(), m=_counters(session))
                 tracer.start()
             split = (max(0.0, ctx.seconds - TRACE_SECONDS), start_trace)
+        # the end-to-end number's device trace, in a run not traced for
+        # the per-layer metrics
+        busy = WindowBusy(ctx.device) if tracer is None else None
+        send_tick = wait_tick = None
+        if busy is not None:
+            def lap(block: bool):
+                # between two calls of the session: the sender never
+                # waits for one, the drain after the window does
+                if busy.due() and disp.gate.acquire(blocking=block):
+                    try:
+                        busy.lap()
+                    finally:
+                        disp.gate.release()
+            send_tick, wait_tick = (lambda: lap(False)), (lambda: lap(True))
+            disp.busy = None if busy.cuda else busy
+            busy.start()
         common.sync(ctx)
         m0 = _counters(session)
         t_open = time.perf_counter()
-        req = send(batcher, off, nodes, t_open, dims.n_classes, split)
+        req = send(batcher, off, nodes, t_open, dims.n_classes, split,
+                   send_tick)
         if tracer is not None:
             tracer.stop()
-        req.wait(t_open + ctx.seconds + WAIT_PAST_CLOSE_S)
+        req.wait(t_open + ctx.seconds + WAIT_PAST_CLOSE_S, wait_tick)
         common.sync(ctx)
+        if busy is not None:
+            busy.stop()
         trace = tracer.summary() if tracer is not None else None
     finally:
         glasu.serve_forward = fwd
@@ -193,7 +237,8 @@ def run(ctx) -> dict:
     memory = common.memory_peak(ctx)
     ok = req.ok
     t_last = float(np.nanmax(req.done)) if ok.any() else float("nan")
-    record = {"trace": trace}
+    record = {"trace": trace,
+              "answers_per_s": len(nodes) / (t_last - t_open)}
     if tracer is not None:
         m1 = mark.get("m", _counters(session))
         t_end = mark.get("t", t_last)
@@ -222,8 +267,15 @@ def run(ctx) -> dict:
                                  dims.agg_layers, serve.cache_entries,
                                  serve.max_batch)
     checks = readings(req.logits[ok], nodes[ok], ref, reported, fresh, dims)
-    return {"e2e": {"serve_answers_per_s": len(nodes) / (t_last - t_open),
-                    "setup_s": t_open - ctx.t_start},
+    e2e, diag = {"setup_s": t_open - ctx.t_start}, {}
+    if busy is not None:
+        n = int(ok.sum())
+        e2e["serve_kernel_ms_per_answer"] = busy.kernel_ns / 1e6 / n
+        diag = {"host_answers_per_s": record["answers_per_s"],
+                "device_ms_per_answer": busy.busy_s * 1e3 / n,
+                "device_ops_per_answer": busy.n_ops / n,
+                "device_trace_chunks": busy.chunks}
+    return {"e2e": e2e, "diagnostics": diag,
             "run": record, "trace": trace, "checks": checks,
             "attempted": len(nodes), "failed": int((~ok).sum()),
             "memory_peak_bytes": memory}

@@ -2,8 +2,9 @@
 
 ``train_follow`` re-derives the first rounds of a training run: the
 sampler's batches, the initial parameters and the full-graph evaluation
-logits at them, each round's losses, Adam's first moment after round 1,
-the parameters after the last round and the byte bill of a round.
+logits at them, each round's losses, Adam's first moment after a given
+round (the end of the run's first step), the parameters after the last
+round and the byte bill of a round.
 ``serve_logits`` re-derives the answer to every node: the ensemble logits
 of an exact full-graph forward over the same neighbour tables.
 """
@@ -52,10 +53,11 @@ def _to_dev(b, device):
 
 
 def train_follow(raw: RawGraph, dims: Dims, sampling: dict, seed: int,
-                 rounds: int, device, *, tf32: bool = False,
-                 fault: Optional[str] = None,
+                 rounds: int, device, *, moment_round: int,
+                 tf32: bool = False, fault: Optional[str] = None,
                  eval_cap: Optional[int] = None) -> Dict[str, object]:
-    """The first ``rounds`` rounds from ``seed``. ``fault`` plants one of
+    """The first ``rounds`` rounds from ``seed``, with Adam's first moment
+    after round ``moment_round``. ``fault`` plants one of
     the faults the check must catch: ``"half_batch"`` (the loss over half
     the batch), ``"no_exchange"`` (no aggregation between clients)."""
     smp = tables.Sampler(raw.graphs, raw.features, raw.labels,
@@ -77,14 +79,14 @@ def train_follow(raw: RawGraph, dims: Dims, sampling: dict, seed: int,
                 torch.from_numpy(idx).to(device),
                 torch.from_numpy(mask).to(device))
             out["eval_logits"] = logits.mean(dim=0)
-        losses, mu1 = [], None
+        losses, mu = [], None
         for r in range(rounds):
             batch = _to_dev(smp.sample_round(), device)
             p, q = model.run_round(dims, p, opt, batch, loss_rows=rows)
             losses.append(q)
-            if r == 0:
-                mu1 = [x.clone() for x in opt.mu]
-        out.update(losses=torch.stack(losses), mu1=mu1, params0=p0,
+            if r + 1 == moment_round:
+                mu = [x.clone() for x in opt.mu]
+        out.update(losses=torch.stack(losses), mu=mu, params0=p0,
                    params=model.leaves(p),
                    bytes_round=smp.comm_bytes_round(dims.hidden))
     return out

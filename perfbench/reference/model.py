@@ -21,6 +21,7 @@ import math
 from dataclasses import dataclass
 from typing import Dict, List, Sequence
 
+import numpy as np
 import torch
 
 
@@ -150,7 +151,11 @@ def client_losses(logits, labels):
 
 
 class Adam:
-    """Adam(lr, 0.9, 0.999, 1e-8) on a flat list of leaves."""
+    """Adam(lr, 0.9, 0.999, 1e-8) on a flat list of leaves. Its bias
+    corrections are float32 numbers like everything else here: in float64,
+    ``1 - 0.999 ** t`` differs from float32's by 1.3e-5 of itself (0.999
+    is not a float32), which scales every step's update by 6e-6 and, over
+    tens of steps, moves a run's trajectory by far more than rounding."""
 
     def __init__(self, lr: float, like: Sequence[torch.Tensor]):
         self.lr, self.t = lr, 0
@@ -159,7 +164,9 @@ class Adam:
 
     def step(self, params, grads):
         self.t += 1
-        bc1, bc2 = 1 - 0.9 ** self.t, 1 - 0.999 ** self.t
+        t = np.float32(self.t)
+        bc1 = float(np.float32(1) - np.float32(0.9) ** t)
+        bc2 = float(np.float32(1) - np.float32(0.999) ** t)
         out = []
         for i, (p, g) in enumerate(zip(params, grads)):
             self.mu[i] = 0.9 * self.mu[i] + 0.1 * g

@@ -48,6 +48,14 @@ def cora_train(**kw):
                    {"warmup_rounds": 5}, **kw)
 
 
+def cora_train_k8(traffic_over=None, **kw):
+    """The K 8 mix, evaluating every 10 rounds: steps of 8 and 2 rounds."""
+    return context("cora-gcnii.train-k8",
+                   config("cora-gcnii-glasu", TINY_SBM,
+                          {**TINY_EXPERIMENT, "eval_every": 10}),
+                   {"warmup_rounds": 10, **(traffic_over or {})}, **kw)
+
+
 def cora_serve(**kw):
     return context("cora-gcnii.serve-zipf",
                    config("cora-gcnii-glasu", TINY_SBM, TINY_EXPERIMENT,

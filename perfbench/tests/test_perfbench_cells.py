@@ -2,6 +2,7 @@
 with the port, and the run comes out not correct when the timed path is
 broken underneath (the faults the check has to catch). The harness's look
 for a chip is skipped; the rest of a run is the benchmark's own."""
+import itertools
 import json
 import subprocess
 import sys
@@ -25,6 +26,7 @@ def _threads():
 
 def _make(name):
     return {"cora_train": cells.cora_train,
+            "cora_train_k8": cells.cora_train_k8,
             "cora_serve": cells.cora_serve}[name]()
 
 
@@ -34,7 +36,8 @@ def _correct(ctx):
     return ok, checks, out
 
 
-@pytest.mark.parametrize("name", ["cora_train", "cora_serve"])
+@pytest.mark.parametrize("name", ["cora_train", "cora_train_k8",
+                                  "cora_serve"])
 def test_reference_agrees_with_the_port(name):
     ok, checks, out = _correct(_make(name))
     assert ok, checks
@@ -69,12 +72,116 @@ def _no_exchange(monkeypatch):
     monkeypatch.setattr(glasu, "_aggregate", own)
 
 
+@pytest.mark.parametrize("cell", ["cora_train", "cora_train_k8"])
 @pytest.mark.parametrize("fault", [_unchanged, _half_batch, _no_exchange],
                          ids=["state_unchanged", "half_batch", "no_exchange"])
-def test_training_fault_is_caught(fault, monkeypatch):
+def test_training_fault_is_caught(fault, cell, monkeypatch):
     fault(monkeypatch)
-    ok, checks, _ = _correct(_make("cora_train"))
+    ok, checks, _ = _correct(_make(cell))
     assert not ok, checks
+
+
+def _with_hook(monkeypatch, hook):
+    """Every ``Trainer`` the driver builds also runs ``hook``, last."""
+    from repro_torch.api import trainer
+    init = trainer.Trainer.__init__
+
+    def with_hook(self, cfg, *a, hooks=(), **kw):
+        init(self, cfg, *a, hooks=[*hooks, hook], **kw)
+    monkeypatch.setattr(trainer.Trainer, "__init__", with_hook)
+
+
+def test_k8_runs_steps_of_8_and_reads_at_their_ends(monkeypatch):
+    """Each hook call of a step sees the state after the whole step; the
+    driver's readings are the step ends'."""
+    from repro_torch.api import trainer
+    seen = []
+
+    class Params(trainer.Hook):
+        def on_round_end(self, tr, m):
+            seen.append((tr.state.round, id(tr.state.params)))
+    _with_hook(monkeypatch, Params())
+    ctx = cells.cora_train_k8()
+    ok, checks, out = _correct(ctx)
+    assert ok and checks["step_mismatches"]["value"] == 0, checks
+    sizes = [sum(1 for _ in g) for _, g in
+             itertools.groupby(seen, key=lambda x: x[1])]
+    assert sizes[:4] == [8, 2, 8, 2]
+    # the window opens after round 10 and closes at a step's end
+    assert out["attempted"] % 10 in (0, 8)
+
+
+def test_k1_step_ends_read_what_the_round_indexed_check_did(monkeypatch):
+    """Under K 1 every round end is a step end: the compared numbers are
+    bitwise those of the moment read at round 1 and the change at round
+    ``check_rounds``."""
+    from repro_torch.api import trainer
+    from perfbench.drivers import train
+    from perfbench.reference import model
+    ctx = cells.cora_train()
+    check = int(ctx.traffic["check_rounds"])
+    old, args = {}, {}
+
+    class RoundIndexed(trainer.Hook):
+        def on_round_end(self, tr, m):
+            st = tr.state
+            if st.round == 1:
+                old["mu"] = [x.clone() for x in model.leaves(st.opt_state.mu)]
+            if st.round == check:
+                old["p"] = [x.detach().clone()
+                            for x in model.leaves(st.params)]
+    _with_hook(monkeypatch, RoundIndexed())
+    readings = train.readings
+
+    def keep(*a):
+        args["a"] = a
+        return readings(*a)
+    monkeypatch.setattr(train, "readings", keep)
+    ok, checks, out = _correct(ctx)
+    assert ok, checks
+    losses, _mu, p0, _p, *rest = args["a"]
+    want, _ = readings(losses, old["mu"], p0, old["p"], *rest)
+    got = {k: v for k, v in out["checks"].items() if k != "step_mismatches"}
+    assert got == want
+    assert out["checks"]["step_mismatches"] == 0
+
+
+@pytest.mark.parametrize("over", [{"warmup_rounds": 9},
+                                  {"check_rounds": 3},
+                                  {"codec": "int8"}],
+                         ids=["warmup_mid_step", "check_mid_step",
+                              "unknown_key"])
+def test_a_mix_off_the_step_ends_raises(over):
+    with pytest.raises(ValueError):
+        harness.run_cell(cells.cora_train_k8(over))
+
+
+def test_dropped_k_fails_step_mismatches(monkeypatch):
+    """The Trainer runs K 1 under the K 8 mix: every reading is of the
+    right round, and only the count of steps tells."""
+    from repro_torch.api import trainer
+    init = trainer.Trainer.__init__
+
+    def k1(self, cfg, *a, **kw):
+        init(self, cfg.with_(rounds_per_step=1), *a, **kw)
+    monkeypatch.setattr(trainer.Trainer, "__init__", k1)
+    ok, checks, _ = _correct(cells.cora_train_k8())
+    assert not ok and checks["step_mismatches"]["value"] > 0, checks
+
+
+def test_sequential_rounds_fail_step_mismatches(monkeypatch):
+    """The Trainer runs each step's rounds one ``run_round`` call at a
+    time, not as the backend's K-round step: the steps' sizes and every
+    reading are right, and only the count of steps tells."""
+    from repro_torch.api import backends, trainer
+
+    def sequential(self, params, opt_state, batches, generators,
+                   faults=None):
+        return backends.run_step_sequential(self.backend, params, opt_state,
+                                            batches, generators)
+    monkeypatch.setattr(trainer.Trainer, "_run_step", sequential)
+    ok, checks, _ = _correct(cells.cora_train_k8())
+    assert not ok and checks["step_mismatches"]["value"] > 0, checks
 
 
 # -------------------------------------------------------------- serving
