@@ -117,20 +117,34 @@ class Graph:
 
 
 def edges_to_csr(n_nodes: int, edges: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Symmetrize an (E, 2) edge list into CSR (indptr, indices)."""
+    """Symmetrize an (E, 2) edge list into CSR (indptr, indices): each pair
+    once in both directions, no self loops, rows and every row's columns
+    ascending.
+
+    One sort of the int64 keys ``src * N + dst``, whose order is the pairs'
+    row-major order: bitwise ``repro.graph.graph``'s result, which sorts
+    the rows for a unique and again for a lexsort."""
     if edges.size == 0:
         return np.zeros(n_nodes + 1, np.int32), np.zeros(0, np.int32)
-    und = np.concatenate([edges, edges[:, ::-1]], axis=0)
-    und = np.unique(und, axis=0)
-    und = und[und[:, 0] != und[:, 1]]  # no explicit self loops (added by sampler)
-    order = np.lexsort((und[:, 1], und[:, 0]))
-    und = und[order]
-    counts = np.bincount(und[:, 0], minlength=n_nodes)
+    src = edges[:, 0].astype(np.int64)  # glint: disable=GL003 src*N+dst sort keys need 64-bit headroom past 46,341 nodes; host-only
+    dst = edges[:, 1].astype(np.int64)  # glint: disable=GL003 src*N+dst sort keys need 64-bit headroom past 46,341 nodes; host-only
+    if min(src.min(), dst.min()) < 0 or max(src.max(), dst.max()) >= n_nodes:
+        raise ValueError(f"edge ids outside [0, {n_nodes})")
+    keys = np.concatenate([src * n_nodes + dst, dst * n_nodes + src])
+    # sort and drop repeats by hand: NumPy 2.3's np.unique hashes integer
+    # keys, 63.5 s against this sort's 0.38 s on Reddit's 22M keys (the
+    # host of an H100 machine)
+    keys.sort()
+    keys = keys[np.concatenate(([True], keys[1:] != keys[:-1]))]
+    src, dst = np.divmod(keys, n_nodes)
+    keep = src != dst                  # no explicit self loops (added by sampler)
+    src, dst = src[keep], dst[keep]
+    counts = np.bincount(src, minlength=n_nodes)
     # int32 CSR repo-wide (x64 stays off end to end): caps at 2^31 edges,
     # far past the roadmap's 1M-node profiles
     indptr = np.zeros(n_nodes + 1, dtype=np.int32)
     indptr[1:] = np.cumsum(counts).astype(np.int32)
-    return indptr, und[:, 1].astype(np.int32)
+    return indptr, dst.astype(np.int32)
 
 
 @dataclass

@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from .. import spans
 from ..graph.csr_plan import csr_slot_map, plan_csr_slabs
 from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .graph_agg import (csr_rows, csr_segment_sums, ell_to_slabs,
@@ -303,9 +304,12 @@ class _GcniiLayer(torch.autograd.Function):
         n = ctx.needs_input_grad
         bwd = gcnii_layer_backward_cuda if h.device.type == "cuda" \
             else gcnii_layer_backward
-        dh, dh0, dw, db = bwd(
-            h, h0, idx, mask, w, z, out, g.contiguous(), ctx.alpha, ctx.beta,
-            (n[0], n[1], n[4], n[5]))
+        m, n_dst, f1 = idx.shape
+        with spans.span("kernel.gcnii_grad", m=m, n_src=h.shape[1],
+                        n_dst=n_dst, f1=f1, d=h.shape[2]):
+            dh, dh0, dw, db = bwd(
+                h, h0, idx, mask, w, z, out, g.contiguous(), ctx.alpha,
+                ctx.beta, (n[0], n[1], n[4], n[5]))
         return dh, dh0, None, None, dw, db, None, None
 
 

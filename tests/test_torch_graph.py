@@ -49,7 +49,9 @@ NATURAL = dict(n_nodes=300, avg_deg=24.0, feat_dim=20, n_classes=5,
 
 @pytest.mark.parametrize("name,n_clients,seed,spec", [
     ("tiny", 3, 0, None), ("tiny", 2, 5, None), ("cora", 3, 0, None),
-    ("natural", 3, 1, NATURAL)])
+    ("natural", 3, 1, NATURAL), ("pubmed", 3, 0, None),
+    ("citeseer", 3, 0, None), ("reddit", 3, 0, None), ("suzhou", 3, 0, None),
+    ("venice", 2, 1, None), ("amsterdam", 3, 0, None)])
 def test_make_vfl_dataset_bitwise(name, n_clients, seed, spec):
     kw = {}
     if spec is not None:
@@ -113,6 +115,49 @@ def test_padded_neighbor_table_bitwise(max_deg, include_self):
         assert x.dtype == y.dtype
         np.testing.assert_array_equal(x, y)
     assert rng_a.random() == rng_b.random()
+
+
+def _edge_list(case, n, seed):
+    rng = np.random.default_rng(seed)
+    e = rng.integers(0, n, size=(4 * n, 2)).astype(np.int32)
+    if case == "duplicates":
+        e = np.concatenate([e, e[: n], e[: n // 2]])
+    elif case == "reversed":
+        e = np.concatenate([e, e[:, ::-1]])
+    elif case == "self_loops":
+        loops = rng.integers(0, n, size=n // 3).astype(np.int32)
+        e = np.concatenate([e, np.stack([loops, loops], 1)])
+    elif case == "all_three":
+        e = np.concatenate([e, e[::-1], e[: n, ::-1],
+                            np.stack([e[:, 0], e[:, 0]], 1)])
+        e = e[rng.permutation(len(e))]
+    elif case == "only_self_loops":
+        e = np.stack([e[:, 0], e[:, 0]], 1)
+    elif case == "int64_one_edge":
+        e = np.array([[n - 1, 0]], np.int64)  # glint: disable=GL003 an int64 edge list, as a caller may pass one; host-only
+    return np.ascontiguousarray(e)
+
+
+@pytest.mark.parametrize("case,n,seed", [
+    ("duplicates", 300, 0), ("reversed", 1000, 1), ("self_loops", 257, 2),
+    ("all_three", 3000, 3), ("only_self_loops", 50, 4),
+    ("int64_one_edge", 9, 5)])
+def test_edges_to_csr_bitwise(case, n, seed):
+    """The port's key sort gives the reference's CSR bit for bit: every
+    pair once in both directions, no self loops, rows and columns
+    ascending."""
+    edges = _edge_list(case, n, seed)
+    got = pt_graph.edges_to_csr(n, edges)
+    want = ref_graph.edges_to_csr(n, edges)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("bad", [[[0, 5]], [[-1, 2]]])
+def test_edges_to_csr_refuses_ids_outside_the_graph(bad):
+    with pytest.raises(ValueError):
+        pt_graph.edges_to_csr(5, np.array(bad, np.int32))
 
 
 def test_edges_to_csr_empty():

@@ -16,11 +16,13 @@ from collections import deque
 import numpy as np
 import pytest
 import torch
+from _torch_inputs import gcnii_inputs
 
 from repro_torch import spans
 from repro_torch.api import Trainer, get_preset
 from repro_torch.core import glasu
 from repro_torch.graph.synth import make_vfl_dataset
+from repro_torch.kernels import ops
 from repro_torch.serve import InferenceSession, MicroBatcher, ServeConfig
 from repro_torch.tree import tree_leaves
 
@@ -174,6 +176,9 @@ def test_a_round_records_its_spans_and_changes_nothing():
         for s in _named(name):
             assert by_id[s.parent].name == "train.step"
             assert s.thread == main
+    grads = _named("kernel.gcnii_grad")
+    assert len(grads) == 3 * q * tr.cfg.n_layers
+    assert {by_id[s.parent].name for s in grads} == {"round.local_backward"}
     samples = _named("prefetch.sample")
     assert len(samples) == 3 and all(s.thread != main for s in samples)
     assert all(s.parent is None for s in samples)
@@ -181,6 +186,32 @@ def test_a_round_records_its_spans_and_changes_nothing():
     assert recs_off == []
     for a, b in zip(tree_leaves(tr.state.params),
                     tree_leaves(off.state.params)):
+        assert torch.equal(a, b)
+
+
+def _gcnii_grads(on: bool):
+    """One GCNII sub-layer's forward and backward on the CPU (the plain
+    VJP) with the recorder ``on`` or off: (the gradients, the records)."""
+    spans.clear()
+    spans.enable(on)
+    h, h0, idx, mask, w, b = (torch.from_numpy(x) for x in
+                              gcnii_inputs(3, 3, 50, 20, 4, 16))
+    leaves = [t.requires_grad_() for t in (h, h0, w, b)]
+    out = ops.gcnii_layer(h, h0, idx, mask, w, b, alpha=0.1, beta=0.5)
+    grads = torch.autograd.grad((out * out).sum(), leaves)
+    spans.enable(False)
+    return grads, spans.records()
+
+
+def test_one_gcnii_backward_records_its_shapes_and_changes_nothing():
+    grads, recs = _gcnii_grads(True)
+    (rec,) = recs
+    assert rec.name == "kernel.gcnii_grad"
+    assert rec.attrs == {"m": 3, "n_src": 50, "n_dst": 20, "f1": 4, "d": 16}
+    assert all(isinstance(v, int) for v in rec.attrs.values())
+    off, recs_off = _gcnii_grads(False)
+    assert recs_off == []
+    for a, b in zip(grads, off):
         assert torch.equal(a, b)
 
 
